@@ -1,0 +1,41 @@
+"""Carry a compiled graph and sampler state over from the JAX package.
+
+The two packages share no classes (the port cannot import the JAX
+package, whose import pulls in jax), so state crosses as plain numpy:
+``dataclasses.asdict`` of the JAX ``CompiledGraph`` (nested ``ColorPlan``
+dicts included), and the sampler state's arrays. With these, one compile
+can feed both packages and their outputs can be compared array by array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from numbskull_tpu_torch.compile import ColorPlan, CompiledGraph
+from numbskull_tpu_torch.ops.gibbs import SamplerState
+
+
+def compiled_graph_from_reference(fields: dict) -> CompiledGraph:
+    """The port's CompiledGraph from ``dataclasses.asdict`` of the JAX
+    package's; every array is copied."""
+    fields = dict(fields)
+    plans = [ColorPlan(**{k: np.array(v) if isinstance(v, np.ndarray)
+                          else v for k, v in p.items()})
+             for p in fields.pop("plans")]
+    rest = {k: np.array(v) if isinstance(v, np.ndarray) else v
+            for k, v in fields.items()}
+    return CompiledGraph(plans=plans, **rest)
+
+
+def sampler_state_from_reference(var_value, var_value_evid, weight_value,
+                                 count, device) -> SamplerState:
+    """The port's SamplerState on ``device`` from the JAX state's arrays
+    (numpy, or anything ``np.asarray`` reads)."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    return SamplerState(var_value=t(var_value, np.int32),
+                        var_value_evid=t(var_value_evid, np.int32),
+                        weight_value=t(weight_value, np.float32),
+                        count=t(count, np.int32))

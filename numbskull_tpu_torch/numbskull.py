@@ -1,0 +1,604 @@
+"""Public API and CLI of the PyTorch port: ``NumbSkull`` and
+``python -m numbskull_tpu_torch``.
+
+Port of ``numbskull_tpu/numbskull.py`` for the inference slice: the same
+argument table and the same two output files (reference:
+numbskull/numbskull.py:18-149 argument tables, :359-391 output files),
+with inference running through the fused sweep kernel of
+``ops/itemgrid`` on the device named by ``--device``. Flags whose
+machinery is not ported yet raise NotImplementedError naming the
+ROADMAP.md port-queue item that will serve them; none is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from numbskull_tpu_torch import dataloading
+from numbskull_tpu_torch import types as T
+from numbskull_tpu_torch.compile import compile_graph
+from numbskull_tpu_torch.observability import metrics
+from numbskull_tpu_torch.ops.gibbs import init_state
+from numbskull_tpu_torch.ops.itemgrid import ItemGridEngine
+from numbskull_tpu_torch.timer import Timer
+
+# Declarative argument tables shared by the CLI and the class: those of
+# numbskull_tpu/numbskull.py (reference numbskull/numbskull.py:18-126,
+# same dests and defaults) plus --device.
+arguments = [
+    (("directory",),
+        {"metavar": "DIRECTORY", "nargs": "?", "default": ".", "type": str,
+         "help": "specify the directory of factor graph files"}),
+    (("-o", "--output_dir"),
+        {"metavar": "OUTPUT_DIR", "dest": "output_dir", "default": ".",
+         "type": str,
+         "help": "output dir for inference_result.out.text and "
+                 "inference_result.out.weights.text"}),
+    (("-m", "--meta", "--fg_meta"),
+        {"metavar": "META_FILE", "dest": "metafile", "default": "graph.meta",
+         "type": str, "help": "factor graph metadata file"}),
+    (("-w", "--weight", "--weights"),
+        {"metavar": "WEIGHTS_FILE", "dest": "weightfile",
+         "default": "graph.weights", "type": str,
+         "help": "factor weight file"}),
+    (("-v", "--variable", "--variables"),
+        {"metavar": "VARIABLES_FILE", "dest": "variablefile",
+         "default": "graph.variables", "type": str,
+         "help": "factor graph variables file"}),
+    (("-f", "--factor", "--factors"),
+        {"metavar": "FACTORS_FILE", "dest": "factorfile",
+         "default": "graph.factors", "type": str, "help": "factor file"}),
+    (("--domain", "--domains"),
+        {"metavar": "DOMAINS_FILE", "dest": "domainfile",
+         "default": "graph.domains", "type": str, "help": "domain file"}),
+    (("-l", "--n_learning_epoch"),
+        {"metavar": "NUM_LEARNING_EPOCHS", "dest": "n_learning_epoch",
+         "default": 0, "type": int, "help": "number of learning epochs"}),
+    (("-i", "--n_inference_epoch"),
+        {"metavar": "NUM_INFERENCE_EPOCHS", "dest": "n_inference_epoch",
+         "default": 0, "type": int, "help": "number of inference epochs"}),
+    (("-s", "--stepsize", "-a", "--alpha"),
+        {"metavar": "LEARNING_STEPSIZE", "dest": "stepsize",
+         "default": 0.01, "type": float, "help": "stepsize for learning"}),
+    (("-d", "--decay", "--diminish"),
+        {"metavar": "LEARNING_DECAY", "dest": "decay", "default": 0.95,
+         "type": float, "help": "stepsize decay per learning epoch"}),
+    (("-r", "--reg_param"),
+        {"metavar": "LEARNING_REGULARIZATION_PARAM", "dest": "reg_param",
+         "default": 0.01, "type": float, "help": "regularization penalty"}),
+    (("--regularization",),
+        {"metavar": "REGULARIZATION", "dest": "regularization", "default": 2,
+         "type": int, "help": "regularization (1 = L1, 2 = L2)"}),
+    (("-k", "--truncation"),
+        {"metavar": "TRUNCATION", "dest": "truncation", "default": 1,
+         "type": int,
+         "help": "L1 truncated-gradient: truncate with probability 1/k and "
+                 "magnitude step_size * reg_param * k"}),
+    (("-b", "--burn_in"),
+        {"metavar": "BURN_IN", "dest": "burn_in", "default": 0, "type": int,
+         "help": "number of burn-in epochs"}),
+    (("-t", "--threads", "--n_threads"),
+        {"metavar": "NUM_THREADS", "dest": "nthreads", "default": 1,
+         "type": int,
+         "help": "accepted for reference compatibility; the engine "
+                 "parallelizes per color, not per thread"}),
+    (("-u", "--dburl"),
+        {"metavar": "DATABASE_URL", "dest": "dburl", "default": "",
+         "type": str, "help": "database URL (distributed graph source)"}),
+    (("--seed",),
+        {"metavar": "SEED", "dest": "seed", "default": 0, "type": int,
+         "help": "seed of the counter-hash draw streams (fully "
+                 "reproducible)"}),
+    (("--grad_agg",),
+        {"metavar": "GRAD_AGG", "dest": "grad_agg", "default": "mean",
+         "type": str, "choices": ("mean", "sum"),
+         "help": "per-color gradient aggregation: 'mean' (stable "
+                 "mini-batch SGD, default) or 'sum' (reproduces the "
+                 "reference's aggregate per-epoch weight movement, "
+                 "learning.py:111-125)"}),
+    (("--engine",),
+        {"metavar": "ENGINE", "dest": "engine", "default": "auto",
+         "type": str, "choices": ("auto", "xla", "itemgrid", "hbm"),
+         "help": "compute engine: 'auto' and 'itemgrid' run the fused "
+                 "sweep kernel; 'xla' and 'hbm' are not ported yet"}),
+    (("--checkpoint",),
+        {"metavar": "CHECKPOINT_FILE", "dest": "checkpoint", "default": "",
+         "type": str,
+         "help": "checkpoint inference to FILE (and learning to "
+                 "FILE.learn: weights, both chains, stepsize schedule) "
+                 "every --checkpoint_every epochs and resume from it if "
+                 "it exists; composes with engine dispatch (itemgrid or "
+                 "XLA per chunk). Resume is bit-exact when the same "
+                 "engine is selected (XLA chunked runs equal "
+                 "uninterrupted ones exactly)"}),
+    (("--checkpoint_every",),
+        {"metavar": "N", "dest": "checkpoint_every", "default": 100,
+         "type": int, "help": "epochs between checkpoints"}),
+    (("--metrics_out",),
+        {"metavar": "METRICS_JSON", "dest": "metrics_out", "default": "",
+         "type": str,
+         "help": "write a JSON metrics snapshot (epochs, wall times, "
+                 "update counts) after the run"}),
+    (("--plan_cache",),
+        {"metavar": "DIR", "dest": "plan_cache", "default": "",
+         "type": str,
+         "help": "disk plan cache directory (default: NSX_PLAN_CACHE "
+                 "env var): byte-identical graphs reload their compiled "
+                 "color plans instead of recompiling (see plancache)"}),
+    (("--max_colors",),
+        {"metavar": "MAX_COLORS", "dest": "max_colors", "default": None,
+         "type": int,
+         "help": "cap chromatic colors; overflow vars share the last color "
+                 "(hogwild-style races, like the reference's threads)"}),
+    (("--parts",),
+        {"metavar": "N", "dest": "parts", "default": 0, "type": int,
+         "help": "run the whole job PARTITIONED into N parts: choose a "
+                 "partition (DB partition keys compete against the "
+                 "cost-model menu), distributed learning with per-epoch "
+                 "weight-delta reduction, distributed inference, same "
+                 "output files — the reference's one-command cluster "
+                 "flow (salt/src/numbskull_master.py:547-584)"}),
+    (("--device",),
+        {"metavar": "DEVICE", "dest": "device", "default": "cuda",
+         "type": str, "choices": ("cuda", "cpu"),
+         "help": "device of the sampler state: 'cuda' runs the CUDA sweep "
+                 "kernel on the GPU (and raises when none is visible); "
+                 "'cpu' runs its plain PyTorch version"}),
+    (("--dist_mode",),
+        {"metavar": "MODE", "dest": "dist_mode", "default": "auto",
+         "type": str, "choices": ("auto", "values", "messages"),
+         "help": "boundary exchange for --parts: ghost values or "
+                 "per-value potential messages (the PF/UFO "
+                 "generalization); auto picks messages when every "
+                 "straddling factor is UFO-eligible"}),
+]
+
+flags = [
+    (("--sample_evidence",),
+        {"default": True, "dest": "sample_evidence", "action": "store_true",
+         "help": "sample evidence variables during inference"}),
+    (("--learn_non_evidence",),
+        {"default": False, "dest": "learn_non_evidence",
+         "action": "store_true",
+         "help": "compute gradients from non-evidence variables"}),
+    (("-q", "--quiet"),
+        {"default": False, "dest": "quiet", "action": "store_true",
+         "help": "quiet"}),
+    (("--verbose",),
+        {"default": False, "dest": "verbose", "action": "store_true",
+         "help": "verbose"}),
+]
+
+
+def _native_dump(path: str, a, b, x, dec: int) -> bool:
+    """Write `a [b] x` text rows via the native core (compilecore.so
+    dump_rows); returns False when unavailable (numpy fallback runs)."""
+    from numbskull_tpu_torch.compile import _compilecore, _ptr
+    core = _compilecore()
+    if core is None:
+        return False
+    import ctypes
+    a = np.ascontiguousarray(a, np.int64)
+    bp = None
+    if b is not None:
+        b = np.ascontiguousarray(b, np.int64)
+        bp = _ptr(b)
+    x = np.ascontiguousarray(x, np.float64)
+    rc = core.dump_rows(path.encode(), ctypes.c_int64(len(a)), _ptr(a),
+                        bp, _ptr(x), ctypes.c_int(dec))
+    return rc == 0
+
+
+def _digit_block(a: np.ndarray, width: int, pad_zero: bool,
+                 neg: np.ndarray | None) -> np.ndarray:
+    """(N, width) uint8 right-aligned decimal digits of non-negative
+    ``a``; leading positions are spaces (or zeros when ``pad_zero``),
+    with '-' placed just left of the first digit for ``neg`` rows.
+
+    Pure digit arithmetic — every numpy text conversion (astype('S'),
+    np.char, savetxt) is a per-element sprintf and takes minutes at
+    9.4M rows; this is a handful of vectorized integer passes."""
+    n = len(a)
+    out = np.empty((n, width), np.uint8)
+    dt = np.int32 if (n == 0 or int(a.max()) < 2 ** 31) else np.int64
+    cur = np.asarray(a).astype(dt, copy=True)
+    live = np.ones(n, bool)            # rows with digits remaining
+    prev = live
+    for k in range(width):             # k-th digit from the right
+        col = width - 1 - k
+        digit = (cur % 10 + 48).astype(np.uint8)
+        if pad_zero or k == 0:
+            out[:, col] = digit
+        else:
+            # '-' lands one column left of a row's last digit
+            fill = np.uint8(32) if neg is None else \
+                np.where(prev & ~live & neg, np.uint8(45), np.uint8(32))
+            out[:, col] = np.where(live, digit, fill)
+        np.floor_divide(cur, 10, out=cur)
+        prev = live
+        live = live & (cur > 0)
+    return out
+
+
+def _int_width(a: np.ndarray) -> int:
+    m = int(a.max()) if len(a) else 0
+    return max(len(str(max(m, 1))), 1)
+
+
+def _format_cols(cols) -> bytes:
+    """`vid value prob`-style rows as one bytes blob: space-separated,
+    right-aligned columns, newline-terminated. Each col is an int array
+    or a ('fixed', array, decimals) fixed-point spec."""
+    blocks = []
+    n = None
+    for c in cols:
+        if isinstance(c, tuple):
+            _, x, dec = c
+            scale = 10 ** dec
+            pm = np.round(np.asarray(x, np.float64) * scale).astype(
+                np.int64)
+            neg = pm < 0
+            ap = np.abs(pm)
+            ip, fr = ap // scale, ap % scale
+            w = _int_width(ip) + (1 if neg.any() else 0)
+            blocks.append(_digit_block(ip, w, False, neg))
+            blocks.append(np.full((len(ip), 1), 46, np.uint8))   # '.'
+            blocks.append(_digit_block(fr, dec, True, None))
+        else:
+            x = np.asarray(c, np.int64)
+            neg = x < 0
+            w = _int_width(np.abs(x)) + (1 if neg.any() else 0)
+            blocks.append(_digit_block(np.abs(x), w, False, neg))
+        n = len(x)
+        blocks.append(np.full((n, 1), 32, np.uint8))             # ' '
+    if n is None or n == 0:
+        return b""
+    blocks[-1][:] = 10                                           # '\n'
+    return np.hstack(blocks).tobytes()
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device for ``device``; 'cuda' without a visible GPU
+    raises (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
+                           "visible; pass --device cpu to run the plain "
+                           "PyTorch version on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError("unsupported device %s" % device)
+    return device
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        "%s is not ported to numbskull_tpu_torch yet (ROADMAP.md, port "
+        "queue: %s)" % (what, item))
+
+
+def check_slice(ns: "NumbSkull") -> None:
+    """Raise for every option this port does not serve yet."""
+    if ns.n_learning_epoch > 0:
+        raise _not_ported("-l/--n_learning_epoch > 0 (learning)",
+                          "M1, GibbsEngine with learning, kernel #2")
+    if ns.checkpoint:
+        raise _not_ported("--checkpoint", "M2, checkpoint.py/resilience.py")
+    if ns.parts and ns.parts > 1:
+        raise _not_ported("--parts > 1", "M4, parallel/*")
+    if ns.dburl:
+        raise _not_ported("-u/--dburl", "M3, dbsource.py")
+    if ns.engine == "xla":
+        raise _not_ported("--engine xla", "M1, GibbsEngine with learning")
+    if ns.engine == "hbm":
+        raise _not_ported("--engine hbm", "kernels #6 and #7")
+
+
+class FactorGraph:
+    """One loaded factor graph: compiled plans, sampler state on one
+    device, and the inference engine (built on first use).
+
+    Role-equivalent of the reference FactorGraph
+    (numbskull/factorgraph.py:27-229), inference only."""
+
+    def __init__(self, cg, fid: int, seed: int = 0, device="cuda"):
+        self.cg = cg
+        self.fid = fid
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+        self.state = init_state(cg, self.device)
+        self.inference_epochs_done = 0
+        self.inference_total_time = 0.0
+        self._calls = 0
+        self._engines = {}       # sample_evidence flag -> ItemGridEngine
+
+    def _next_seed(self) -> int:
+        """Kernel seed of the next run: SeedSequence([seed, fid, call])."""
+        ss = np.random.SeedSequence([self.seed, self.fid, self._calls])
+        self._calls += 1
+        return int(ss.generate_state(1, np.uint32)[0] & 0x7FFFFFFF)
+
+    def engine(self, sample_evidence: bool) -> ItemGridEngine:
+        key = bool(sample_evidence)
+        if key not in self._engines:
+            self._engines[key] = ItemGridEngine(
+                self.cg, sample_evidence=key, device=self.device)
+        return self._engines[key]
+
+    def inference(self, burnin_epochs: int, epochs: int,
+                  sample_evidence: bool = False, diagnostics: bool = False,
+                  checkpoint: str = "", checkpoint_every: int = 100):
+        if checkpoint:
+            raise _not_ported("checkpointed inference",
+                              "M2, checkpoint.py/resilience.py")
+        self._infer_once(burnin_epochs, epochs, sample_evidence)
+        if diagnostics:
+            print("FACTOR %d: inference %d epochs took %.3f sec" %
+                  (self.fid, epochs, self._last_infer_s))
+            self.diagnostics(self.inference_epochs_done)
+
+    def _infer_once(self, burnin_epochs: int, epochs: int,
+                    sample_evidence: bool):
+        with Timer() as t:
+            with metrics.time("inference.engine_build_s"):
+                eng = self.engine(sample_evidence)
+            with metrics.time("inference.sweep_s"):
+                vals, counts = eng.run(
+                    self._next_seed(), burnin_epochs, epochs,
+                    weight_value=self.state.weight_value,
+                    x0=self.state.var_value)
+                self.state.var_value = vals
+                self.state.count += counts
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        metrics.observe("inference.run_s", t.interval)
+        metrics.add("inference.epochs", epochs + burnin_epochs)
+        metrics.add("inference.variable_updates",
+                    float(self.cg.n_vars) * (epochs + burnin_epochs))
+        self.inference_total_time += t.interval
+        self.inference_epochs_done += epochs
+        self._last_infer_s = t.interval
+
+    def learn(self, burnin_epochs: int, epochs: int):
+        """Zero epochs keep the initial weights; more raise."""
+        if epochs > 0:
+            raise _not_ported("learning",
+                              "M1, GibbsEngine with learning, kernel #2")
+
+    # --- getters / diagnostics (reference factorgraph.py:84-123) ----------
+
+    def getWeights(self) -> np.ndarray:
+        return self.state.weight_value.cpu().numpy()
+
+    def _counts(self) -> np.ndarray:
+        return self.state.count.cpu().numpy().astype(np.float64)
+
+    def getMarginals(self, epochs: int | None = None) -> np.ndarray:
+        """Marginals in the reference's cardinality-compressed layout."""
+        epochs = epochs or self.inference_epochs_done or 1
+        vrep, kidx = _out_layout_for(np.asarray(self.cg.var_card, np.int64))
+        return self._counts()[vrep, kidx] / epochs
+
+    def full_marginals(self, epochs: int | None = None) -> np.ndarray:
+        """(V, K) marginal matrix."""
+        epochs = epochs or self.inference_epochs_done or 1
+        return self._counts() / epochs
+
+    def diagnostics(self, epochs: int):
+        print("Inference took %.03f sec." % self.inference_total_time)
+        marg = self.getMarginals(epochs)
+        hist, _ = np.histogram(marg, bins=10, range=(0.0, 1.0))
+        for i in range(10):
+            print("Prob. %.1f..%.1f: %d variables" %
+                  (i / 10.0, (i + 1) / 10.0, hist[i]))
+
+    # --- dumps (DimmWitted text format, reference factorgraph.py:210-229) --
+
+    def dump_weights(self, fout: str):
+        dump_weight_text(self.getWeights()[:self.cg.n_weights], fout)
+
+    def dump_probabilities(self, fout: str, epochs: int):
+        dump_marginal_text(self.cg, self._counts(), epochs, fout)
+
+
+def _out_layout_for(card: np.ndarray):
+    """Flat cstart output layout over a cardinality vector (binary
+    vars: one slot, at k=1); see FactorGraph._out_layout."""
+    if not len(card):
+        z = np.zeros(0, np.int64)
+        return z, z
+    nsl = np.where(card == 2, 1, card)
+    csum = np.cumsum(nsl)
+    vrep = np.repeat(np.arange(len(card)), nsl)
+    within = np.arange(csum[-1]) - np.repeat(csum - nsl, nsl)
+    kidx = within + (card[vrep] == 2)
+    return vrep, kidx
+
+
+def dump_marginal_text(cg, counts: np.ndarray, epochs: int, fout: str):
+    """DimmWitted `vid value prob` dump from a (V, K) count matrix
+    (shared by FactorGraph and the distributed runner)."""
+    epochs = epochs or 1
+    card = np.asarray(cg.var_card, np.int64)
+    vrep, kidx = _out_layout_for(card)
+    prob = counts[vrep, kidx] / epochs
+    dt = np.asarray(cg.var_dtype, np.int64)
+    vo = np.asarray(cg.vtf_offset, np.int64)
+    vmapv = np.asarray(cg.vmap_value, np.int64)
+    binary = card[vrep] == 2
+    # dense multi-valued variables: values ARE 0..card-1 (the
+    # reference's dump reads past its single vmap slot here,
+    # factorgraph.py:226-228 — a latent bug its tests never hit; we
+    # write the identity values). Categorical: the original domain
+    # value at this slot.
+    dense_val = kidx
+    if len(vmapv):
+        dom_idx = np.minimum(vo[vrep] + kidx, len(vmapv) - 1)
+        cat_val = vmapv[dom_idx]
+    else:
+        cat_val = kidx
+    value = np.where(binary, 1,
+                     np.where(dt[vrep] == 0, dense_val, cat_val))
+    if _native_dump(fout, vrep, value, prob, 3):
+        return
+    with open(fout, "wb") as out:
+        out.write(_format_cols((vrep, value, ("fixed", prob, 3))))
+
+
+def dump_weight_text(weights: np.ndarray, fout: str):
+    """DimmWitted `wid weight` dump."""
+    w = np.asarray(weights, np.float64)
+    ids = np.arange(len(w))
+    if _native_dump(fout, ids, None, w, 6):
+        return
+    with open(fout, "wb") as out:
+        out.write(_format_cols((ids, ("fixed", w, 6))))
+
+
+class NumbSkull:
+    """Main user-facing class; drop-in analog of the reference NumbSkull
+    (numbskull/numbskull.py:152-391) for inference. ``device`` ('cuda'
+    by default) holds every graph's sampler state. Options this port
+    does not serve yet raise NotImplementedError here (check_slice)."""
+
+    def __init__(self, **kwargs):
+        arg_defaults = {}
+        for arg, opts in arguments:
+            if arg[0] == "directory":
+                arg_defaults["directory"] = opts["default"]
+            else:
+                arg_defaults[opts["dest"]] = opts["default"]
+        for arg, opts in flags:
+            arg_defaults[opts["dest"]] = opts["default"]
+        for key, default in arg_defaults.items():
+            setattr(self, key, kwargs.get(key, default))
+        check_slice(self)
+        self.device = resolve_device(self.device)
+        self.factorGraphs: list[FactorGraph] = []
+
+    # --- loading -----------------------------------------------------------
+
+    def _add_graph(self, cg):
+        self.factorGraphs.append(
+            FactorGraph(cg, len(self.factorGraphs), seed=self.seed,
+                        device=self.device))
+
+    def loadFactorGraph(self, weight, variable, factor, fmap, domain_mask,
+                        edges, var_copies=1, weight_copies=1,
+                        factors_to_skip=np.empty(0, np.int64)):
+        """Load a programmatically built graph (structured arrays)."""
+        for name, arr, dtype in (("weight", weight, T.Weight),
+                                 ("variable", variable, T.Variable),
+                                 ("factor", factor, T.Factor),
+                                 ("fmap", fmap, T.FactorToVar)):
+            if not isinstance(arr, np.ndarray) or arr.dtype != dtype:
+                raise TypeError("%s must be a numpy array of dtype "
+                                "types.%s" % (name, name.capitalize()))
+        cg = compile_graph(weight, variable, factor, fmap,
+                           factors_to_skip=factors_to_skip,
+                           max_colors=self.max_colors,
+                           domain_mask=domain_mask,
+                           seed=self.seed,
+                           cache=self.plan_cache or None)
+        self._add_graph(cg)
+
+    def loadFactorGraphRaw(self, cg, var_copies=1, weight_copies=1):
+        """Load a pre-compiled graph (CompiledGraph), skipping
+        compilation (reference loadFactorGraphRaw, numbskull.py:183-190)."""
+        self._add_graph(cg)
+
+    def loadFGFromFile(self, directory=None, metafile=None, weightfile=None,
+                       variablefile=None, factorfile=None, domainfile=None,
+                       var_copies=1, weight_copies=1):
+        """Load a DeepDive binary factor graph directory."""
+        directory = directory or self.directory
+        if not directory:
+            print("No factor graph specified")
+            return
+        with metrics.time("load.files_s"):
+            meta, weights, variables, factors, fmap, vmap, domain_mask = \
+                dataloading.load_factor_graph_files(
+                    directory,
+                    metafile or self.metafile,
+                    weightfile or self.weightfile,
+                    variablefile or self.variablefile,
+                    factorfile or self.factorfile,
+                    domainfile or self.domainfile)
+        if not self.quiet:
+            print("Meta:")
+            print("    weights:  ", meta["weights"])
+            print("    variables:", meta["variables"])
+            print("    factors:  ", meta["factors"])
+            print("    edges:    ", meta["edges"])
+        with metrics.time("load.compile_s"):
+            cg = compile_graph(weights, variables, factors, fmap,
+                               max_colors=self.max_colors,
+                               domain_values=vmap["value"],
+                               domain_mask=domain_mask,
+                               seed=self.seed,
+                               cache=self.plan_cache or None)
+        if not self.quiet:
+            print("chromatic schedule: %d colors" % cg.n_colors)
+        self._add_graph(cg)
+
+    def getFactorGraph(self, fgID: int = 0) -> FactorGraph:
+        return self.factorGraphs[fgID]
+
+    # --- inference / learning ----------------------------------------------
+
+    def inference(self, fgID: int = 0, out: bool = True):
+        fg = self.factorGraphs[fgID]
+        fg.inference(self.burn_in, self.n_inference_epoch,
+                     sample_evidence=self.sample_evidence,
+                     diagnostics=not self.quiet,
+                     checkpoint=self.checkpoint,
+                     checkpoint_every=self.checkpoint_every)
+        if out:
+            os.makedirs(self.output_dir, exist_ok=True)
+            with metrics.time("dump.marginals_s"):
+                fg.dump_probabilities(
+                    os.path.join(self.output_dir,
+                                 "inference_result.out.text"),
+                    self.n_inference_epoch)
+
+    def learning(self, fgID: int = 0, out: bool = True):
+        """Dump the weights; learning epochs (-l > 0) are not ported yet
+        and raise."""
+        fg = self.factorGraphs[fgID]
+        fg.learn(self.burn_in, self.n_learning_epoch)
+        if out:
+            os.makedirs(self.output_dir, exist_ok=True)
+            fg.dump_weights(os.path.join(
+                self.output_dir, "inference_result.out.weights.text"))
+
+
+def load(argv=None) -> NumbSkull:
+    """Parse CLI args, build a NumbSkull, load the graph directory."""
+    if argv is None:
+        argv = sys.argv[1:]
+    parser = argparse.ArgumentParser(
+        description="Runs a Gibbs sampler on a GPU (PyTorch + CUDA)",
+        epilog="")
+    parser.add_argument("--version", action="version",
+                        version="%(prog)s " + "0.1.0")
+    for arg, opts in arguments:
+        parser.add_argument(*arg, **opts)
+    for arg, opts in flags:
+        parser.add_argument(*arg, **opts)
+    args = parser.parse_args(argv)
+    ns = NumbSkull(**vars(args))
+    ns.loadFGFromFile()
+    return ns
+
+
+def main(argv=None):
+    ns = load(argv)
+    ns.learning()
+    ns.inference()
+    if ns.metrics_out:
+        metrics.dump(ns.metrics_out)
+    return ns
