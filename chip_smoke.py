@@ -8,27 +8,48 @@ Run from the root of a checkout, with no arguments:
 Phases (each one that fails exits non-zero; nothing is retried):
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
-   and the build (``make -C native``, then nvcc of the sweep kernel).
-2. Kernel against its plain version on the card: for coin, Ising 64x64,
-   LF card 3, Potts card 20, 64 and 128, and grouped voting at degree 50
-   (arity 51), 5 burn-in plus 20 tallied epochs from the same state
-   through the CUDA kernel and through ``color_step_reference``, under
-   the port's own schedule and under one that swaps every map and draw
-   (so `row`, `tile`, `cdf`, `vec` and `sigmoid2` all run). Dyadic
-   weights make potential sums exact in any order, so values and
-   counts must be bit-equal. Then the coin model's marginals on the
-   card against the exact joint.
-3. The main path: a 1024x1024 Ising graph (1,048,576 boolean variables,
-   2,095,104 EQUAL factors, weight 0.25) written as DeepDive binary
-   files, then ``numbskull_tpu_torch.numbskull.main`` with -i 500 -b 50
-   on the GPU. Its outputs are checked, and the kernel's launch count
-   must be (500 + 50) x colors. Then the kernel is held bit for bit
-   against the plain version on the CLI's own tables (2 burn-in plus 3
-   tallied epochs, 524,288 rows per launch).
-4. Rates: epoch-differenced variable updates per second (CUDA events),
-   kernel and plain version in turns, on the graph of phase 3 and on a
-   200,000-copy Snorkel-style LF graph (1.2 M variables), which is first
-   held bit for bit against the plain version as in phase 3.
+   and the build (``make -C native``, then nvcc of the sweep and learn
+   kernels, both at once).
+2. Kernels against their plain versions on the card.
+   Sweep: for coin, Ising 64x64, LF card 3, Potts card 20, 64 and 128,
+   and grouped voting at degree 50 (arity 51), 5 burn-in plus 20
+   tallied epochs from the same state through the CUDA kernel and
+   through ``color_step_reference``, under the port's own schedule and
+   under one that swaps every map and draw (so `row`, `tile`, `cdf`,
+   `vec` and `sigmoid2` all run), and an Ising 64x64 compiled with
+   max_colors=1 (one color whose rows read each other). Dyadic weights
+   make potential sums exact in any order, so values and counts must be
+   bit-equal. Then the coin model's marginals on the card against the
+   exact joint.
+   Learn: for coin, Ising 64x64 with 30 % evidence, LF card 3 (L1,
+   learn_non_evidence, one fixed weight), Potts 32x32 card 64 and 128
+   with evidence, voting degree 50 with 30 % evidence, 4096 ISTRUE
+   weights (L1) and the max_colors=1 Ising, 2 burn-in and 5 learning
+   epochs from one state through the kernels and through
+   ``learn_color_step_reference``, compared after every (epoch, color):
+   weights and both chains must be bit-equal. Then an LF graph with
+   non-dyadic featureValues learns twice through the kernels: the two
+   runs must agree bit for bit.
+3. Main path, inference: a 1024x1024 Ising graph (1,048,576 boolean
+   variables, 2,095,104 EQUAL factors, weight 0.25) written as
+   DeepDive binary files, then ``numbskull_tpu_torch.numbskull.main``
+   with -i 500 -b 50 on the GPU. Its outputs are checked, and the
+   kernel's launch count must be (500 + 50) x colors. Then the kernel
+   is held bit for bit against the plain version on the CLI's own
+   tables (2 burn-in plus 3 tallied epochs, 524,288 rows per launch).
+4. Main path, learning: the coin graph with 200,000 copies (400,000
+   variables, 600,000 factors, evidence drawn from the exact joint of
+   weights (0.8, -0.5, 0.4)) as DeepDive files, then ``main`` with
+   -l 150 -i 100 -b 10 -s 0.1 -d 0.99 -r 1e-4. The learned weights must
+   be within 0.15 of the truth and both kernels' launches as counted;
+   then the learn kernels are held bit for bit against the plain
+   version on the CLI's own tables (2 burn-in plus 3 learning epochs).
+5. Rates: epoch-differenced variable updates per second (CUDA events),
+   kernel and plain version in turns, for inference on the graph of
+   phase 3 and for learning on the graph of phase 4, and for both on a
+   200,000-copy Snorkel-style LF graph (1.2 M variables), which is
+   first held bit for bit against the plain versions as in phase 3;
+   with the device busy share of each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -43,15 +64,21 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 GRID = 1024              # phase 3 Ising side
-LF_COPIES = 200000       # phase 4 LF graph copies
-KERNEL = {"name": "itemgrid_sweep", "route": "cuda",
-          "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
-          "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1597"}
+COIN_COPIES = 200000     # phase 4 coin graph copies
+LF_COPIES = 200000       # phase 5 LF graph copies
+SWEEP = {"name": "itemgrid_sweep", "route": "cuda",
+         "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
+         "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1597"}
+LEARN = {"name": "itemgrid_learn", "route": "cuda",
+         "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
+         "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2045"}
+COIN_TRUTH = (0.8, -0.5, 0.4)
 
 
 def fail(msg: str):
@@ -99,15 +126,32 @@ def phase_device(torch):
     log("native helpers built in %.2f s" % (time.perf_counter() - t0))
     from numbskull_tpu_torch.ops import _build, itemgrid
     t0 = time.perf_counter()
-    itemgrid._kernel_lib()
-    info = _build.BUILD_INFO.get("itemgrid_sweep")
-    log("sweep kernel loaded in %.2f s (nvcc %s)" % (
-        time.perf_counter() - t0,
-        "%.2f s" % info["seconds"] if info else "cached"))
-    if info:
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    errors = {}
+
+    def build(name):
+        try:
+            itemgrid._kernel_lib(name)
+        except Exception as err:          # reported below, then fail
+            errors[name] = err
+
+    threads = [threading.Thread(target=build, args=(name,))
+               for name in ("itemgrid_sweep", "itemgrid_learn")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        fail("kernel build failed: %s" % errors)
+    log("kernels loaded in %.2f s, both built at once" %
+        (time.perf_counter() - t0))
+    for name in ("itemgrid_sweep", "itemgrid_learn"):
+        info = _build.BUILD_INFO.get(name)
+        log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
+                               else "cached"))
+        if info:
+            for line in info["ptxas"].splitlines():
+                if "registers" in line or "spill" in line:
+                    log("    ptxas: " + line.strip())
 
 
 def _fixtures():
@@ -162,7 +206,7 @@ def compare(torch, eng, seed=7, burn=5, epochs=20):
     from numbskull_tpu_torch.ops import itemgrid as pig
     cg, t, dev = eng.cg, eng.tables, eng.device
     w = torch.as_tensor(cg.weight_init, dtype=torch.float32, device=dev)
-    xk = torch.as_tensor(cg.var_init, dtype=torch.int32, device=dev)
+    xk = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
     xp = xk.clone()
     ck = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32, device=dev)
     cp = ck.clone()
@@ -214,6 +258,11 @@ def phase_compare(torch):
     want = {(m, d) for m in pig.MAPS for d in pig.DRAWS}
     if seen != want:
         fail("maps x draws not all exercised: %s" % sorted(want - seen))
+    eng = pig.ItemGridEngine(_ising_one_color(), device=DEVICE)
+    if eng.tables.conflict != [True]:
+        fail("max_colors=1 Ising: the one color is not marked conflicting")
+    worst = max(worst, check_equal(torch, "ising64_max_colors1", "own",
+                                   eng))
 
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.models import coin_exact_marginal, coin_model
@@ -235,6 +284,182 @@ def phase_compare(torch):
     return worst
 
 
+def _ising_one_color():
+    """Ising 64x64 with 30 % evidence and a learnable weight, compiled
+    with max_colors=1: every row reads neighbours of its own color."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_grid
+    w, v, f, fm, dm, _ = _with_evidence(ising_grid(64, 64, weight=0.25,
+                                                   fixed=False), 0.3, 2)
+    return compile_graph(w, v, f, fm, domain_mask=dm, max_colors=1)
+
+
+def _with_evidence(model, frac, seed, values=None):
+    """``model`` with a random ``frac`` of its variables made evidence
+    (values from ``values``, or random below each cardinality)."""
+    import numpy as np
+    w, v, f, fm, dm, e = model
+    rng = np.random.default_rng(seed)
+    v["isEvidence"] = (rng.random(len(v)) < frac).astype(np.int8)
+    v["initialValue"] = values if values is not None else \
+        rng.integers(0, 1 << 30, len(v)) % v["cardinality"]
+    return w, v, f, fm, dm, e
+
+
+def _learn_fixtures():
+    """(name, graph, LearnParams): every learn kernel template (kmax 2,
+    8, 32, 128), L1 and L2, mean and sum, learn_non_evidence, fixed
+    weights, arity 51, 4096 weights, and a conflicting color."""
+    import numpy as np
+
+    from numbskull_tpu_torch import models as M
+    from numbskull_tpu_torch import types as T
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+
+    def cg(t, **kw):
+        w, v, f, fm, dm, _ = t
+        return compile_graph(w, v, f, fm, domain_mask=dm, **kw)
+
+    l2 = LearnParams(regularization=2, reg_param=1e-4)
+    out = [("coin", cg(M.coin_model(4096, *COIN_TRUTH, evidence=True,
+                                     fixed=False, seed=3)), l2)]
+    out.append(("ising64_ev30_sum", cg(_with_evidence(M.ising_grid(
+        64, 64, weight=0.25, fixed=False), 0.3, 1)),
+        LearnParams(regularization=0, grad_agg="sum")))
+    t = M.lf_model(0.5, [0.5, 0.25, 0.75], copies=2000, seed=1)
+    t[0]["isFixed"][2] = True
+    out.append(("lf_card3_l1", cg(t), LearnParams(
+        regularization=1, reg_param=0.01, truncation=4,
+        learn_non_evidence=True)))
+    for card in (64, 128):
+        r, c = np.divmod(np.arange(32 * 32), 32)
+        t = _with_evidence(M.potts_grid(32, 32, card=card, weight=0.0,
+                                        fixed=False), 0.3, card,
+                           ((r // 4) * 3 + c // 4) % card)
+        out.append(("potts32_card%d_ev30" % card,
+                    cg(t, color_hint=M.ising_color_hint(32, 32)), l2))
+    out.append(("voting_degree50_ev30", cg(M.voting_grouped(
+        10000, 50, weight=0.5, fixed=False, evidence_frac=0.3)), l2))
+    n = 4096
+    v = T.new_variables(n)
+    v["isEvidence"] = 1
+    v["initialValue"] = np.random.default_rng(9).integers(0, 2, n)
+    v["cardinality"] = 2
+    w = T.new_weights(n)
+    f = T.new_factors(n)
+    f["factorFunction"] = T.FUNC_ISTRUE
+    f["weightId"] = np.arange(n)
+    f["featureValue"] = 1.0
+    f["arity"] = 1
+    f["ftv_offset"] = np.arange(n)
+    fm = T.new_fmap(n)
+    fm["vid"] = np.arange(n)
+    out.append(("istrue4096_l1", compile_graph(w, v, f, fm), LearnParams(
+        regularization=1, reg_param=0.01, truncation=3)))
+    out.append(("ising64_max_colors1", _ising_one_color(), l2))
+    return out
+
+
+def _bits_equal(torch, a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def compare_learn(torch, eng, lp, seed=7, burn=2, epochs=5, stepsize=0.05,
+                  decay=0.98):
+    """Lockstep learn kernels vs plain version from one state on the
+    card, over the engine's own learn tables: the burn-in through both
+    sweep versions, then every (epoch, color) through both learn
+    versions, comparing weights and both chains after each. Returns
+    (equal steps, steps, max abs difference, kernel weights)."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    cg, dev = eng.cg, eng.device
+    lt = eng.learn_tables()
+    t = lt.sweep
+    wk = torch.tensor(cg.weight_init, dtype=torch.float32, device=dev)
+    xk = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
+    wp, xp, xek, xep = wk.clone(), xk.clone(), xk.clone(), xk.clone()
+    counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
+                         device=dev)
+    for b in range(burn):
+        for ci in range(t.n_steps):
+            pig.sweep_color(t, ci, xk, counts, wk, seed, b, False,
+                            pig.BURN_SALT_XOR)
+            pig.color_step_reference(t, ci, xp, counts, wp, seed, b, False,
+                                     pig.BURN_SALT_XOR)
+    equal = total = 0
+    for i in range(epochs):
+        hs = pig.learn_step_of(lp, stepsize, decay, i)
+        for ci in range(t.n_steps):
+            pig.learn_color(lt, ci, xk, xek, wk, seed,
+                            i + pig.LEARN_EPOCH0, hs)
+            pig.learn_color_step_reference(lt, ci, xp, xep, wp, seed,
+                                           i + pig.LEARN_EPOCH0, hs)
+            equal += int(_bits_equal(torch, wk, wp) and
+                         _bits_equal(torch, xk, xp) and
+                         _bits_equal(torch, xek, xep))
+            total += 1
+    torch.cuda.synchronize()
+    err = max(float((wk - wp).abs().max()) if len(wk) else 0.0,
+              float((xk - xp).abs().max()), float((xek - xep).abs().max()))
+    return equal, total, err, wk
+
+
+def check_learn_equal(torch, name, eng, lp, **kw):
+    """compare_learn(), logged; fails on any unequal step or when the
+    weights did not move. Returns the max abs difference (0)."""
+    eq, tot, err, w = compare_learn(torch, eng, lp, **kw)
+    w0 = torch.as_tensor(eng.cg.weight_init, dtype=torch.float32,
+                         device=w.device)
+    moved = int((w != w0).sum())
+    log("  %-22s kmax %3d colors %2d weights %4d (%d moved): %d of %d "
+        "learn steps equal, max |diff| %g" % (
+            name, eng.cg.kmax, eng.cg.n_colors, eng.cg.n_weights, moved, eq,
+            tot, err))
+    if eq != tot or err != 0:
+        fail("learn kernels and plain version disagree on %s" % name)
+    if moved == 0:
+        fail("no weight moved on %s" % name)
+    return err
+
+
+def phase_learn_compare(torch):
+    """Phase 2, learning; returns the largest kernel-vs-plain
+    difference seen."""
+    import numpy as np
+
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import lf_model
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    log("== phase 2: learn kernels vs plain version on the card "
+        "(bit-equal)")
+    worst = 0.0
+    for name, cg, lp in _learn_fixtures():
+        eng = pig.ItemGridEngine(cg, device=DEVICE)
+        worst = max(worst, check_learn_equal(torch, name, eng, lp))
+
+    w, v, f, fm, dm, _ = lf_model(0.5, [0.9, 0.6, 0.3, 0.8], copies=5000,
+                                  seed=4)
+    f["featureValue"] = np.random.default_rng(5).uniform(0.3, 1.7, len(f))
+    eng = pig.ItemGridEngine(compile_graph(w, v, f, fm, domain_mask=dm),
+                             device=DEVICE)
+    lp = LearnParams(regularization=2, reg_param=0.01,
+                     learn_non_evidence=True)
+    runs = [eng.learn(3, 2, 20, 0.05, 0.98, lp) for _ in range(2)]
+    same = all(_bits_equal(torch, a, b) for a, b in zip(*runs))
+    _, _, err, _ = compare_learn(torch, eng, lp)
+    log("  lf non-dyadic featureValues: two kernel runs of 20 epochs %s; "
+        "weights %s; lockstep against the plain version max |diff| %g"
+        % ("bit-identical" if same else "DIFFER",
+           np.array2string(runs[0][0].cpu().numpy(), precision=6), err))
+    if not same:
+        fail("learn kernels are not deterministic (non-dyadic LF)")
+    return worst
+
+
 def phase_main_path(torch, workdir):
     """Phase 3; returns (kernel launches, NumbSkull, max kernel-vs-plain
     difference on the main path's own tables)."""
@@ -245,7 +470,8 @@ def phase_main_path(torch, workdir):
     from numbskull_tpu_torch.models import ising_grid
     from numbskull_tpu_torch.observability import metrics
     from numbskull_tpu_torch.ops import itemgrid as pig
-    log("== phase 3: CLI main path, %dx%d Ising on the card" % (GRID, GRID))
+    log("== phase 3: CLI main path (inference), %dx%d Ising on the card"
+        % (GRID, GRID))
     t0 = time.perf_counter()
     w, v, f, fm, _, _ = ising_grid(GRID, GRID, weight=0.25)
     gdir = os.path.join(workdir, "ising1024")
@@ -255,7 +481,7 @@ def phase_main_path(torch, workdir):
     out = os.path.join(workdir, "out")
     burn, epochs = 50, 500
     metrics.reset()
-    pig.KERNEL_LAUNCHES = 0
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
     t0 = time.perf_counter()
     ns = cli.main([gdir, "-i", str(epochs), "-b", str(burn), "-o", out,
                    "-q", "--device", DEVICE])
@@ -276,6 +502,8 @@ def phase_main_path(torch, workdir):
     if launches != (burn + epochs) * n_colors:
         fail("kernel launches %d != (%d + %d) x %d colors"
              % (launches, epochs, burn, n_colors))
+    if pig.LEARN_LAUNCHES != 0:
+        fail("-l 0 launched the learn kernels")
     text = os.path.join(out, "inference_result.out.text")
     weights = os.path.join(out, "inference_result.out.weights.text")
     for p in (text, weights):
@@ -314,7 +542,7 @@ def _plain_run(torch, eng, seed, epochs):
     from numbskull_tpu_torch.ops import itemgrid as pig
     cg, dev = eng.cg, eng.device
     w = torch.as_tensor(cg.weight_init, dtype=torch.float32, device=dev)
-    x = torch.as_tensor(cg.var_init, dtype=torch.int32, device=dev)
+    x = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
     counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
                          device=dev)
     s977 = pig.seed977_of(seed)
@@ -356,13 +584,169 @@ def device_busy(torch, fn):
     return dev_us / wall_us if dev_us > 0 else None
 
 
-def phase_rates(torch, ns, card):
-    """Phase 4; returns (kernel ms, plain ms) per epoch on the Ising and
-    the max kernel-vs-plain difference on the LF graph."""
+def phase_learn_main_path(torch, workdir):
+    """Phase 4; returns (learn launches, NumbSkull, max kernel-vs-plain
+    difference on the main path's own learn tables)."""
+    import numpy as np
+
+    from numbskull_tpu_torch import dataloading
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.models import coin_model
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    log("== phase 4: CLI main path (learning), coin %d copies on the card"
+        % COIN_COPIES)
+    t0 = time.perf_counter()
+    w, v, f, fm, _, _ = coin_model(COIN_COPIES, *COIN_TRUTH, evidence=True,
+                                   fixed=False, seed=3)
+    gdir = os.path.join(workdir, "coin")
+    dataloading.write_factor_graph_files(gdir, w, v, f, fm)
+    log("  wrote %d variables, %d factors in %.2f s"
+        % (len(v), len(f), time.perf_counter() - t0))
+    out = os.path.join(workdir, "out_learn")
+    lrn, burn, epochs = 150, 10, 100
+    metrics.reset()
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    ns = cli.main([gdir, "-l", str(lrn), "-i", str(epochs), "-b", str(burn),
+                   "-s", "0.1", "-d", "0.99", "-r", "1e-4", "-o", out, "-q",
+                   "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    sweeps, learns = pig.KERNEL_LAUNCHES, pig.LEARN_LAUNCHES
+    fg = ns.factorGraphs[0]
+    eng = fg.engine(True)
+    lt = eng.learn_tables()
+    n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
+    per_epoch = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
+                    for ci in range(lt.sweep.n_steps)
+                    if lt.sweep.n_rows[ci] > 0)
+    log("  main() took %.2f s; learning %.3f s, inference %.3f s; %d learn "
+        "launches (%d per epoch), %d sweep launches, %d colors"
+        % (wall, fg.learning_total_time, fg.inference_total_time, learns,
+           per_epoch, sweeps, n_colors))
+    tm = metrics.snapshot()["timings"]
+    log("  breakdown (s): " + ", ".join(
+        "%s %.3f" % (k, tm[k]["total_s"]) for k in (
+            "load.files_s", "load.compile_s", "learning.engine_build_s",
+            "learning.sweep_s", "inference.sweep_s", "dump.marginals_s")))
+    if learns != lrn * per_epoch:
+        fail("learn launches %d != %d epochs x %d" % (learns, lrn,
+                                                      per_epoch))
+    if sweeps != (burn + burn + epochs) * n_colors:
+        fail("sweep launches %d != (%d burn-in of learning + %d + %d) x %d "
+             "colors" % (sweeps, burn, burn, epochs, n_colors))
+    path = os.path.join(out, "inference_result.out.weights.text")
+    if not os.path.isfile(path):
+        fail("missing output " + path)
+    got = np.loadtxt(path, ndmin=2)[:, 1]
+    off = np.abs(got - np.asarray(COIN_TRUTH)).max()
+    log("  learned weights %s (truth %s), max |off| %.4f"
+        % (np.array2string(got, precision=4), COIN_TRUTH, off))
+    if got.shape != (3,) or not off < 0.15:
+        fail("learned coin weights off the truth by more than 0.15")
+    rows = np.loadtxt(os.path.join(out, "inference_result.out.text"),
+                      ndmin=2)
+    if rows.shape != (2 * COIN_COPIES, 3) or \
+            not np.isfinite(rows[:, 2]).all():
+        fail("inference_result.out.text after learning has shape %s"
+             % (rows.shape,))
+    err = check_learn_equal(torch, "coin400k (CLI tables)", eng,
+                            LearnParams(regularization=2, reg_param=1e-4),
+                            burn=2, epochs=3, stepsize=0.1, decay=0.99)
+    return learns, ns, err
+
+
+def _time_epochs(torch, fn, epochs):
+    """CUDA-event time (ms) of fn(epochs)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(epochs)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _plain_run(torch, eng, seed, epochs):
+    """ItemGridEngine.run through color_step_reference (the plain
+    version) on the card."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    cg, dev = eng.cg, eng.device
+    w = torch.as_tensor(cg.weight_init, dtype=torch.float32, device=dev)
+    x = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
+    counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
+                         device=dev)
+    s977 = pig.seed977_of(seed)
+    for epoch in range(epochs):
+        for ci in range(eng.tables.n_steps):
+            pig.color_step_reference(eng.tables, ci, x, counts, w, s977,
+                                     epoch, True)
+    return x, counts
+
+
+def _plain_learn(torch, eng, lp, seed, epochs):
+    """ItemGridEngine.learn (no burn-in) through
+    learn_color_step_reference on the card."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    cg, dev = eng.cg, eng.device
+    lt = eng.learn_tables()
+    w = torch.tensor(cg.weight_init, dtype=torch.float32, device=dev)
+    x = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
+    xe = x.clone()
+    for i in range(epochs):
+        hs = pig.learn_step_of(lp, 0.1, 0.99, i)
+        for ci in range(lt.sweep.n_steps):
+            pig.learn_color_step_reference(lt, ci, x, xe, w, seed,
+                                           i + pig.LEARN_EPOCH0, hs)
+    return w
+
+
+def rate(torch, eng, plain, lo, hi, lp=None):
+    """Epoch-differenced variable updates per second and ms per epoch of
+    inference, or of learning when ``lp`` is given."""
+    if lp is not None:
+        fn = (lambda e: _plain_learn(torch, eng, lp, 1, e)) if plain else \
+            (lambda e: eng.learn(1, 0, e, 0.1, 0.99, lp))
+    elif plain:
+        def fn(e):
+            _plain_run(torch, eng, 1, e)
+    else:
+        def fn(e):
+            eng.run(1, 0, e)
+    fn(1)                                           # warm up
+    t_lo = min(_time_epochs(torch, fn, lo) for _ in range(2))
+    t_hi = min(_time_epochs(torch, fn, hi) for _ in range(2))
+    per_ms = (t_hi - t_lo) / (hi - lo)
+    return eng.cg.n_vars / (per_ms / 1e3), per_ms
+
+
+def device_busy(torch, fn):
+    """Share of a window's wall time that the device spent in kernels
+    (torch.profiler), or None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages())
+    return dev_us / wall_us if dev_us > 0 else None
+
+
+def phase_rates(torch, ising_ns, coin_ns, card):
+    """Phase 5; returns {graph: {"kernel": (ups, ms), "plain": ...}} for
+    inference and learning, and the max kernel-vs-plain difference of
+    each on the LF graph."""
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.models import lf_model
     from numbskull_tpu_torch.ops import itemgrid as pig
-    log("== phase 4: epoch-differenced rates (CUDA events), " + card)
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    log("== phase 5: epoch-differenced rates (CUDA events), " + card)
     t0 = time.perf_counter()
     w, v, f, fm, dm, _ = lf_model(0.7, [0.5, 0.25, 0.75, 0.5, 1.0],
                                   copies=LF_COPIES, seed=3)
@@ -371,26 +755,36 @@ def phase_rates(torch, ns, card):
     log("  lf graph: %d variables, %d factors, %d colors, kmax %d "
         "(built in %.1f s)" % (len(v), len(f), lf_eng.cg.n_colors,
                                lf_eng.cg.kmax, time.perf_counter() - t0))
-    err = check_equal(torch, "lf200k", "own", lf_eng, burn=2, epochs=3)
-    graphs = (("ising1024", ns.factorGraphs[0].engine(True), (20, 220),
-               (2, 12)),
-              ("lf200k", lf_eng, (20, 220), (2, 12)))
+    lp_lf = LearnParams(regularization=1, reg_param=0.01, truncation=10,
+                        learn_non_evidence=True)
+    lp_coin = LearnParams(regularization=2, reg_param=1e-4)
+    err_sweep = check_equal(torch, "lf200k", "own", lf_eng, burn=2,
+                            epochs=3)
+    err_learn = check_learn_equal(torch, "lf200k", lf_eng, lp_lf, burn=2,
+                                  epochs=3)
+    graphs = (
+        ("ising1024", "infer", ising_ns.factorGraphs[0].engine(True), None,
+         (20, 220), (2, 12)),
+        ("lf200k", "infer", lf_eng, None, (20, 220), (2, 12)),
+        ("coin400k", "learn", coin_ns.factorGraphs[0].engine(True), lp_coin,
+         (20, 120), (2, 6)),
+        ("lf200k", "learn", lf_eng, lp_lf, (20, 120), (2, 6)))
     result = {}
-    for gname, eng, kern_pts, plain_pts in graphs:
+    for gname, what, eng, lp, kern_pts, plain_pts in graphs:
         meas = {}
         for which in ("plain", "kernel", "kernel", "plain"):
             pts = plain_pts if which == "plain" else kern_pts
-            ups, ms = rate(torch, eng, which == "plain", *pts)
+            ups, ms = rate(torch, eng, which == "plain", *pts, lp=lp)
             meas.setdefault(which, []).append((ups, ms))
-            log("  %-9s %-6s %.6g variable updates/s, %.4f ms/epoch "
-                "(epochs %d..%d)" % (gname, which, ups, ms, *pts))
-        result[gname] = {k: max(vs) for k, vs in meas.items()}
-        busy = device_busy(torch, lambda: eng.run(1, 0, 50))
-        log("  %-9s kernel device busy share over 50 epochs: %s"
-            % (gname, "not measured (no device time in the trace)"
+            log("  %-9s %-5s %-6s %.6g variable updates/s, %.4f ms/epoch "
+                "(epochs %d..%d)" % (gname, what, which, ups, ms, *pts))
+        result[(gname, what)] = {k: max(vs) for k, vs in meas.items()}
+        busy = device_busy(torch, (lambda: eng.run(1, 0, 50)) if lp is None
+                           else (lambda: eng.learn(1, 0, 50, 0.1, 0.99, lp)))
+        log("  %-9s %-5s kernel device busy share over 50 epochs: %s"
+            % (gname, what, "not measured (no device time in the trace)"
                if busy is None else "%.3f" % busy))
-    ising = result["ising1024"]
-    return ising["kernel"][1], ising["plain"][1], err
+    return result, err_sweep, err_learn
 
 
 def main():
@@ -398,14 +792,20 @@ def main():
     card = card_line()
     phase_device(torch)
     worst = phase_compare(torch)
+    worst_l = phase_learn_compare(torch)
     with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
-        launches, ns, err3 = phase_main_path(torch, work)
-        k_ms, p_ms, err4 = phase_rates(torch, ns, card)
-    worst = max(worst, err3, err4)
-    record = dict(KERNEL, launches=launches, max_abs_err=worst, ms=k_ms,
-                  plain_ms=p_ms)
+        launches, ising_ns, err3 = phase_main_path(torch, work)
+        learns, coin_ns, err4 = phase_learn_main_path(torch, work)
+        rates, err5, err5_l = phase_rates(torch, ising_ns, coin_ns, card)
+    sweep = rates[("ising1024", "infer")]
+    learn = rates[("coin400k", "learn")]
+    records = [
+        dict(SWEEP, launches=launches, max_abs_err=max(worst, err3, err5),
+             ms=sweep["kernel"][1], plain_ms=sweep["plain"][1]),
+        dict(LEARN, launches=learns, max_abs_err=max(worst_l, err4, err5_l),
+             ms=learn["kernel"][1], plain_ms=learn["plain"][1])]
     log(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

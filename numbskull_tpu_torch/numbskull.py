@@ -1,13 +1,15 @@
 """Public API and CLI of the PyTorch port: ``NumbSkull`` and
 ``python -m numbskull_tpu_torch``.
 
-Port of ``numbskull_tpu/numbskull.py`` for the inference slice: the same
-argument table and the same two output files (reference:
+Port of ``numbskull_tpu/numbskull.py`` for learning and inference: the
+same argument table and the same two output files (reference:
 numbskull/numbskull.py:18-149 argument tables, :359-391 output files),
-with inference running through the fused sweep kernel of
-``ops/itemgrid`` on the device named by ``--device``. Flags whose
-machinery is not ported yet raise NotImplementedError naming the
-ROADMAP.md port-queue item that will serve them; none is ignored.
+with learning (``-l N``) running through the learn kernels and inference
+through the fused sweep kernel of ``ops/itemgrid``, on the device named
+by ``--device``. Learning runs first; inference continues from the
+learned weights and the learned free chain. Flags whose machinery is not
+ported yet raise NotImplementedError naming the ROADMAP.md port-queue
+item that will serve them; none is ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from numbskull_tpu_torch import dataloading
 from numbskull_tpu_torch import types as T
 from numbskull_tpu_torch.compile import compile_graph
 from numbskull_tpu_torch.observability import metrics
-from numbskull_tpu_torch.ops.gibbs import init_state
+from numbskull_tpu_torch.ops.gibbs import LearnParams, init_state
 from numbskull_tpu_torch.ops.itemgrid import ItemGridEngine
 from numbskull_tpu_torch.timer import Timer
 
@@ -105,7 +107,8 @@ arguments = [
         {"metavar": "ENGINE", "dest": "engine", "default": "auto",
          "type": str, "choices": ("auto", "xla", "itemgrid", "hbm"),
          "help": "compute engine: 'auto' and 'itemgrid' run the fused "
-                 "sweep kernel; 'xla' and 'hbm' are not ported yet"}),
+                 "sweep and learn kernels; 'xla' and 'hbm' are not "
+                 "ported yet"}),
     (("--checkpoint",),
         {"metavar": "CHECKPOINT_FILE", "dest": "checkpoint", "default": "",
          "type": str,
@@ -283,9 +286,6 @@ def _not_ported(what: str, item: str):
 
 def check_slice(ns: "NumbSkull") -> None:
     """Raise for every option this port does not serve yet."""
-    if ns.n_learning_epoch > 0:
-        raise _not_ported("-l/--n_learning_epoch > 0 (learning)",
-                          "M1, GibbsEngine with learning, kernel #2")
     if ns.checkpoint:
         raise _not_ported("--checkpoint", "M2, checkpoint.py/resilience.py")
     if ns.parts and ns.parts > 1:
@@ -293,7 +293,7 @@ def check_slice(ns: "NumbSkull") -> None:
     if ns.dburl:
         raise _not_ported("-u/--dburl", "M3, dbsource.py")
     if ns.engine == "xla":
-        raise _not_ported("--engine xla", "M1, GibbsEngine with learning")
+        raise _not_ported("--engine xla", "M1b, the XLA GibbsEngine")
     if ns.engine == "hbm":
         raise _not_ported("--engine hbm", "kernels #6 and #7")
 
@@ -303,7 +303,7 @@ class FactorGraph:
     device, and the inference engine (built on first use).
 
     Role-equivalent of the reference FactorGraph
-    (numbskull/factorgraph.py:27-229), inference only."""
+    (numbskull/factorgraph.py:27-229)."""
 
     def __init__(self, cg, fid: int, seed: int = 0, device="cuda"):
         self.cg = cg
@@ -313,6 +313,8 @@ class FactorGraph:
         self.state = init_state(cg, self.device)
         self.inference_epochs_done = 0
         self.inference_total_time = 0.0
+        self.learning_total_time = 0.0
+        self._last_learn_s = 0.0
         self._calls = 0
         self._engines = {}       # sample_evidence flag -> ItemGridEngine
 
@@ -363,11 +365,52 @@ class FactorGraph:
         self.inference_epochs_done += epochs
         self._last_infer_s = t.interval
 
-    def learn(self, burnin_epochs: int, epochs: int):
-        """Zero epochs keep the initial weights; more raise."""
+    def learn(self, burnin_epochs: int, epochs: int, stepsize: float,
+              decay: float, regularization: int, reg_param: float,
+              truncation: int, diagnostics: bool = False,
+              verbose: bool = False, learn_non_evidence: bool = False,
+              grad_agg: str = "mean", checkpoint: str = "",
+              checkpoint_every: int = 100):
+        """Dual-chain SGD through the learn kernels (the signature of
+        numbskull_tpu/numbskull.py:424-469). Zero epochs keep the
+        weights and the chains as they are."""
+        lp = LearnParams(regularization=regularization, reg_param=reg_param,
+                         truncation=truncation,
+                         learn_non_evidence=learn_non_evidence,
+                         grad_agg=grad_agg)
+        if checkpoint:
+            raise _not_ported("checkpointed learning",
+                              "M2, checkpoint.py/resilience.py")
         if epochs > 0:
-            raise _not_ported("learning",
-                              "M1, GibbsEngine with learning, kernel #2")
+            self._learn_once(burnin_epochs, epochs, stepsize, decay, lp)
+        if diagnostics:
+            print("FACTOR %d: learning %d epochs took %.3f sec" %
+                  (self.fid, epochs, self._last_learn_s))
+            if verbose:
+                self.diagnosticsLearning()
+
+    def _learn_once(self, burnin_epochs: int, epochs: int,
+                    stepsize: float, decay: float, lp: LearnParams):
+        """One learning run; both chains continue from the current
+        state."""
+        with Timer() as t:
+            with metrics.time("learning.engine_build_s"):
+                eng = self.engine(True)
+                eng.learn_tables()
+            with metrics.time("learning.sweep_s"):
+                w, x, xe = eng.learn(
+                    self._next_seed(), burnin_epochs, epochs, stepsize,
+                    decay, lp, weight_value=self.state.weight_value,
+                    x0=self.state.var_value, xe0=self.state.var_value_evid)
+                self.state.weight_value = w
+                self.state.var_value = x
+                self.state.var_value_evid = xe
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        metrics.observe("learning.run_s", t.interval)
+        metrics.add("learning.epochs", epochs)
+        self.learning_total_time += t.interval
+        self._last_learn_s = t.interval
 
     # --- getters / diagnostics (reference factorgraph.py:84-123) ----------
 
@@ -387,6 +430,14 @@ class FactorGraph:
         """(V, K) marginal matrix."""
         epochs = epochs or self.inference_epochs_done or 1
         return self._counts() / epochs
+
+    def diagnosticsLearning(self):
+        print("Weights:")
+        w = self.getWeights()
+        for i in range(self.cg.n_weights):
+            print("    weightId:", i)
+            print("        isFixed:", bool(self.cg.weight_fixed[i]))
+            print("        weight: ", float(w[i]))
 
     def diagnostics(self, epochs: int):
         print("Inference took %.03f sec." % self.inference_total_time)
@@ -461,8 +512,8 @@ def dump_weight_text(weights: np.ndarray, fout: str):
 
 class NumbSkull:
     """Main user-facing class; drop-in analog of the reference NumbSkull
-    (numbskull/numbskull.py:152-391) for inference. ``device`` ('cuda'
-    by default) holds every graph's sampler state. Options this port
+    (numbskull/numbskull.py:152-391). ``device`` ('cuda' by default)
+    holds every graph's sampler state. Options this port
     does not serve yet raise NotImplementedError here (check_slice)."""
 
     def __init__(self, **kwargs):
@@ -566,10 +617,14 @@ class NumbSkull:
                     self.n_inference_epoch)
 
     def learning(self, fgID: int = 0, out: bool = True):
-        """Dump the weights; learning epochs (-l > 0) are not ported yet
-        and raise."""
         fg = self.factorGraphs[fgID]
-        fg.learn(self.burn_in, self.n_learning_epoch)
+        fg.learn(self.burn_in, self.n_learning_epoch, self.stepsize,
+                 self.decay, self.regularization, self.reg_param,
+                 self.truncation, diagnostics=not self.quiet,
+                 verbose=self.verbose,
+                 learn_non_evidence=self.learn_non_evidence,
+                 grad_agg=self.grad_agg, checkpoint=self.checkpoint,
+                 checkpoint_every=self.checkpoint_every)
         if out:
             os.makedirs(self.output_dir, exist_ok=True)
             fg.dump_weights(os.path.join(

@@ -4,7 +4,9 @@ with a plain C interface, bound with ctypes.
 The sources under ``numbskull_tpu_torch/csrc/`` are compiled at first use
 for ``sm_90a`` into ``build/numbskull_tpu_torch/`` at the repository
 root (listed in .gitignore). The library's file name carries a hash of
-the sources and flags, so an edited source never loads a stale build.
+every source under ``csrc/`` (the shared headers included) and the
+flags, so an edited source never loads a stale build. Each library has
+its own build lock, so two libraries can build at once.
 Nothing here runs at import time, and nothing falls back: a missing
 ``nvcc`` or a failed build raises.
 """
@@ -44,17 +46,28 @@ def _nvcc() -> str:
                        "the numbskull_tpu_torch CUDA kernels")
 
 
+def sources_digest() -> str:
+    """Hash of every ``csrc/*.cu`` and ``csrc/*.cuh`` file and the nvcc
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        if fname.endswith((".cu", ".cuh")):
+            digest.update(fname.encode())
+            with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+                digest.update(fh.read())
+    return digest.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (once) and load ``csrc/<name>.cu`` as a ctypes library."""
     if name in _LIBS:
         return _LIBS[name]
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, "lib%s_%s.so"
-                            % (name, digest.hexdigest()[:16]))
-    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+                            % (name, sources_digest()))
+    with open(os.path.join(BUILD_DIR, ".build.%s.lock" % name),
+              "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.isfile(lib_path):
             tmp = lib_path + ".tmp%d" % os.getpid()

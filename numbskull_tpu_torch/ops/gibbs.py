@@ -1,12 +1,14 @@
 """Sampler state and the plain per-color potential computation.
 
 Partial port of ``numbskull_tpu/ops/gibbs.py``: ``SamplerState``, the
-initial state, and ``color_potentials`` — the potentials of every
-variable of one color at every candidate value, computed with gathers,
-one broadcast factor evaluation and ``index_add_``. It is the plain
-version that ``ops/itemgrid.color_step_reference`` draws from, and the
-tests hold the CUDA sweep kernel to it. The XLA-style ``GibbsEngine``
-and learning are not ported yet (ROADMAP, port queue).
+initial state, ``LearnParams``, and ``color_potentials`` — the
+potentials of every variable of one color at every candidate value,
+computed with gathers, one broadcast factor evaluation and a per-row sum
+in item order. It is the plain version that the draws of
+``ops/itemgrid`` (``color_step_reference``,
+``learn_color_step_reference``) start from, and the tests hold the CUDA
+kernels to it. The XLA-style ``GibbsEngine`` is not ported yet (ROADMAP,
+port queue M1).
 """
 
 from __future__ import annotations
@@ -18,6 +20,20 @@ import torch
 
 from numbskull_tpu_torch.compile import ColorPlan, CompiledGraph
 from numbskull_tpu_torch.ops.factor_eval import eval_factors
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnParams:
+    """Static learning hyperparameters (numbskull_tpu/ops/gibbs.py:51-63,
+    the same fields and defaults)."""
+
+    regularization: int = 2     # 0 none, 1 L1 truncated gradient, 2 L2
+    reg_param: float = 0.01
+    truncation: int = 1
+    learn_non_evidence: bool = False
+    # 'mean': mean gradient per color step (default); 'sum': the
+    # reference's aggregate movement (learning.py:111-125)
+    grad_agg: str = "mean"
 
 
 @dataclasses.dataclass
@@ -53,17 +69,45 @@ _PLAN_FIELDS = ("cv_vid", "cv_card", "cv_isev", "cv_valid", "it_row",
                 "it_args_valid", "it_args_card", "it_subst")
 
 
-def plan_tensors(plan: ColorPlan, device) -> dict:
-    """The fields of one ColorPlan that inference reads, as tensors on
-    ``device`` (index fields as int64, masks as bool)."""
-    out = {}
-    for name in _PLAN_FIELDS:
+def plan_tensors(plan: ColorPlan, device, items=None) -> dict:
+    """The fields of one ColorPlan that the plain versions read, as
+    tensors on ``device`` (index fields as int64, masks as bool,
+    ``it_fv`` as float32). ``items`` keeps only those items, in that
+    order; each row's potential then sums its items in that order.
+
+    ``slots`` holds, per rank d, the valid items that are the d-th of
+    their row, so that ``color_potentials`` adds them in item order."""
+    arrays = {}
+    for name in _PLAN_FIELDS + ("it_fv",):
         a = np.asarray(getattr(plan, name))
+        arrays[name] = a[items] if items is not None and \
+            name.startswith("it_") else a
+    out = {}
+    for name, a in arrays.items():
         if a.dtype == np.bool_:
             out[name] = torch.as_tensor(a, device=device)
+        elif name == "it_fv":
+            out[name] = torch.as_tensor(a.astype(np.float32), device=device)
         else:
             out[name] = torch.as_tensor(a.astype(np.int64), device=device)
+    out["slots"] = [torch.as_tensor(s, device=device) for s in
+                    _rank_slots(arrays["it_row"], arrays["it_valid"])]
     return out
+
+
+def _rank_slots(it_row: np.ndarray, it_valid: np.ndarray) -> list:
+    """Valid item indices grouped by their rank within their row (item
+    order): entry d lists the d-th item of every row that has one."""
+    idx = np.flatnonzero(it_valid)
+    if not len(idx):
+        return []
+    rows = it_row[idx].astype(np.int64)
+    order = np.argsort(rows, kind="stable")
+    rs = rows[order]
+    rank = np.arange(len(rs)) - np.searchsorted(rs, rs, side="left")
+    by_rank = np.argsort(rank, kind="stable")
+    bounds = np.cumsum(np.bincount(rank))[:-1]
+    return np.split(idx[order][by_rank], bounds)
 
 
 def color_potentials(pd: dict, kmax: int, present, var_value: torch.Tensor,
@@ -73,9 +117,9 @@ def color_potentials(pd: dict, kmax: int, present, var_value: torch.Tensor,
     Equivalent to the reference's potential() (numbskull/inference.py:
     55-71) looped over every variable of the color and every candidate
     value; featureValue is absent, as in the reference's inference.
-    Item contributions are summed in item order per row (``index_add_``
-    on the CPU; on the GPU the order is free, which is exact for dyadic
-    weights).
+    Item contributions are summed per row in item order on every device
+    (one pass per item rank, ``pd["slots"]``), the order of the CUDA
+    kernels, so the sums agree bit for bit for any weights.
     """
     vals = var_value[pd["it_args_vid"]].to(torch.int64)            # (I, A)
     ks = torch.arange(kmax, dtype=torch.int64, device=vals.device)
@@ -97,4 +141,7 @@ def color_potentials(pd: dict, kmax: int, present, var_value: torch.Tensor,
                                       device=e.device))
     R = pd["cv_card"].shape[0]
     pot = torch.zeros((R, kmax), dtype=torch.float32, device=e.device)
-    return pot.index_add_(0, pd["it_row"], contrib)
+    for sl in pd["slots"]:
+        rows = pd["it_row"][sl]
+        pot[rows] = pot[rows] + contrib[sl]
+    return pot

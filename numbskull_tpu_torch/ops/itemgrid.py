@@ -1,35 +1,54 @@
-"""Fused chromatic Gibbs inference: the sweep kernel, its plain version,
-and the engine that drives them.
+"""Fused chromatic Gibbs sampling and learning: the sweep and learn
+kernels, their plain versions, and the engine that drives them.
 
-Port of ``numbskull_tpu/ops/itemgrid_pallas.py`` (``_make_kernel`` and
-``PallasItemGridEngine.run``) and of the schedule replay in
-``numbskull_tpu/ops/parity.py:37-67``. The TPU kernel's packed layout,
-windowed one-hot gathers, color-major renumbering and int16 tallies
-existed to work around the TPU's missing gather and its VMEM cap; none
-of them is carried over. Values stay in original variable order on the
-device, every color's rows and their items live in flat CSR tables
-(:func:`build_tables`), and one launch of ``csrc/itemgrid_sweep.cu``
-per (epoch, color) resamples a color with one thread per row.
+Port of ``numbskull_tpu/ops/itemgrid_pallas.py`` (``_make_kernel``,
+``_make_learn_kernel``, ``PallasItemGridEngine.run`` and ``.learn``) and
+of the schedule replay in ``numbskull_tpu/ops/parity.py:37-67``. The TPU
+kernels' packed layout, windowed one-hot gathers, color-major
+renumbering and int16 tallies existed to work around the TPU's missing
+gather and its VMEM cap; none of them is carried over. Values stay in
+original variable order on the device, every color's rows and their
+items live in flat CSR tables (:func:`build_tables`), and one launch of
+``csrc/itemgrid_sweep.cu`` per (epoch, color) resamples a color with one
+thread per row. Learning (:func:`learn_color`) launches
+``csrc/itemgrid_learn.cu`` three times per (epoch, color): both chains'
+draws and per-item gradients, a per-weight reduction in a fixed order,
+and the weight update.
 
-What is kept exactly are the inputs to every draw, so that a run can be
-held bit for bit against the TPU kernel's software-PRNG path:
+What is kept exactly are the inputs to every draw and every weight
+update, so that a run can be held bit for bit against the TPU kernels'
+software-PRNG path:
 
-- the counter hash ``_uniform_sw`` with seed ``int32(seed * 977)`` and
-  salt ``int32(int32(epoch * (COLOR_MAX + 1) + ci) * 65536 + block)``;
+- the counter hash ``_uniform_sw`` with seed ``int32(seed * 977)``
+  (inference) or the raw seed (learning) and salt
+  ``int32(int32(epoch * (COLOR_MAX + 1) + ci) * 65536 + block)``,
+  XORed with a per-chain constant in learning;
 - two position maps: ``row`` (block = upos // 1024, i0 = 0,
   i1 = upos % 1024) and ``tile`` (i0 = (upos % 1024) // 128,
   i1 = upos % 128);
 - three draws: ``cdf`` (``_draw``), ``vec`` (``_draw_vec``, a
   Hillis-Steele prefix sum over the global kmax width) and
-  ``sigmoid2`` (``_draw2``).
+  ``sigmoid2`` (``_draw2``);
+- each row's potentials summed in the order of its items, which a
+  schedule may set (``Schedule.arg_rank``).
 
 A :class:`Schedule` says, per step of a sweep, which compile color runs
 and with which map and draw, and gives every variable its draw position
 ``upos``. :func:`default_schedule` is the port's own; the tests derive
 one from the JAX package's ``ItemGridPlan`` to compare the two engines.
+Learning runs the same colors and positions with the `row` map and the
+`cdf` draw on every step, as the TPU learn kernel does.
 
-:func:`sweep_color` is the wrapper: CPU tensors take the plain version
-(:func:`color_step_reference`), CUDA tensors launch the kernel or raise.
+A step whose color is not independent (``compile.color_variables`` with
+``max_colors`` puts the overflow variables in one color, so a row may
+read a neighbour of its own color) reads every value from before the
+step, as the plain versions do: the kernels read from a snapshot of the
+chains taken just before the launch.
+
+:func:`sweep_color` and :func:`learn_color` are the wrappers: CPU
+tensors take the plain versions (:func:`color_step_reference`,
+:func:`learn_color_step_reference`), CUDA tensors launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -41,8 +60,10 @@ import numpy as np
 import torch
 
 from numbskull_tpu_torch.compile import CompiledGraph
-from numbskull_tpu_torch.ops.factor_eval import present_types_of
-from numbskull_tpu_torch.ops.gibbs import color_potentials, plan_tensors
+from numbskull_tpu_torch.ops.factor_eval import (eval_factors,
+                                                 present_types_of)
+from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
+                                          plan_tensors)
 from numbskull_tpu_torch.types import EV_EVIDENCE, EV_QUERY
 
 COLOR_MAX = 256      # salt stride is COLOR_MAX + 1: at most 256 colors
@@ -53,12 +74,22 @@ RB = 1024            # positions per uniform block
 MAPS = ("row", "tile")
 DRAWS = ("cdf", "vec", "sigmoid2")
 
-ROW_UPDATE = 1       # row_flags bits (csrc/itemgrid_sweep.cu)
+ROW_UPDATE = 1       # row_flags bits (csrc/itemgrid_common.cuh)
 ROW_TALLY = 2
+ROW_CLAMPED = 4      # the clamped chain resamples the row (query rows)
+ROW_EVIDENCE = 8     # the row's items carry the gradient (evidence rows)
+
+BURN_SALT_XOR = 0x40000000      # learning's burn-in draws
+CLAMPED_SALT_XOR = 0x55555555   # the clamped chain's draws
+WEIGHT_SALT_XOR = 0x33333333    # the L1 truncation coin
+LEARN_EPOCH0 = 1 << 16          # salt epoch of learning epoch 0
+RED_CHUNK = 1024                # items per chunk of the gradient sum
 
 #: launches of the CUDA sweep kernel in this process; the wrapper adds
 #: one where it launches and nowhere else
 KERNEL_LAUNCHES = 0
+#: launches of the CUDA learn kernels (step, reduce, update)
+LEARN_LAUNCHES = 0
 
 
 def _i32(v: int) -> int:
@@ -88,13 +119,25 @@ def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & ((1 << (32 - s)) - 1)
 
 
-def block_uniforms(seed977: int, salt16: int, upos: torch.Tensor,
-                   tile: bool) -> torch.Tensor:
-    """The TPU kernel's software uniform at draw positions ``upos``.
+def hash_uniforms(seed: int, salt, i0, i1) -> torch.Tensor:
+    """``_uniform_sw`` at positions (i0, i1): the counter hash of the
+    int32 ``seed``, ``salt`` (int or int32 tensor) and the position.
 
     int32 arithmetic throughout: multiplication wraps to the low 32
     bits that uint32 would keep, and every right shift is masked to be
     logical."""
+    salt = _i32(salt * _H3) if isinstance(salt, int) else salt * _H3
+    x = (i0 * _H0) ^ (i1 * _H1) ^ _i32(seed * _H2) ^ salt
+    x = (x ^ _lsr(x, 15)) * _H4
+    x = (x ^ _lsr(x, 12)) * _H5
+    x = x ^ _lsr(x, 15)
+    return _lsr(x, 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def block_uniforms(seed977: int, salt16: int, upos: torch.Tensor,
+                   tile: bool, salt_xor: int = 0) -> torch.Tensor:
+    """The TPU kernel's software uniform at draw positions ``upos``;
+    the salt of block b is ``(salt16 + b) ^ salt_xor``."""
     upos = upos.to(torch.int32)
     blk = upos >> 10
     pos = upos & (RB - 1)
@@ -102,12 +145,8 @@ def block_uniforms(seed977: int, salt16: int, upos: torch.Tensor,
         i0, i1 = pos >> 7, pos & 127
     else:
         i0, i1 = torch.zeros_like(pos), pos
-    salt = blk + salt16
-    x = (i0 * _H0) ^ (i1 * _H1) ^ _i32(seed977 * _H2) ^ (salt * _H3)
-    x = (x ^ _lsr(x, 15)) * _H4
-    x = (x ^ _lsr(x, 12)) * _H5
-    x = x ^ _lsr(x, 15)
-    return _lsr(x, 8).to(torch.float32) * (1.0 / (1 << 24))
+    salt = (blk + salt16) ^ _i32(salt_xor)
+    return hash_uniforms(seed977, salt, i0, i1)
 
 
 def draw_cdf(pot: torch.Tensor, card: torch.Tensor, kmax: int,
@@ -165,12 +204,17 @@ class Schedule:
 
     Step ``ci`` resamples compile color ``colors[ci]`` with position map
     ``maps[ci]`` and draw ``draws[ci]``; ``upos`` (V,) is every
-    variable's draw position within its color."""
+    variable's draw position within its color. A row sums its items in
+    plan order, or, given ``arg_rank`` (V,), in ascending order of the
+    smallest ``arg_rank`` among each item's gathered arguments (items
+    that gather nothing last, ties in plan order): the slot order of the
+    TPU kernel when ``arg_rank`` is its plan's ``perm``."""
 
     colors: tuple
     maps: tuple
     draws: tuple
     upos: np.ndarray
+    arg_rank: np.ndarray | None = None
 
     def __post_init__(self):
         n = len(self.colors)
@@ -209,9 +253,11 @@ class SweepTables:
 
     Rows (variables) of every step are concatenated in schedule order,
     with their items in CSR form and the items' arguments in flat
-    arrays. ``plans`` keeps each step's ColorPlan, from which the plain
-    version computes its potentials (:meth:`plan_tensors`, built on
-    first use, so a kernel-only run never uploads them)."""
+    arrays. ``plans`` keeps each step's ColorPlan and ``item_index`` the
+    plan items of each step in table order, from which the plain
+    versions compute their potentials (:meth:`plan_tensors`, built on
+    first use, so a kernel-only run never uploads them). ``conflict``
+    marks the steps whose color is not independent."""
 
     kmax: int
     n_vars: int
@@ -219,7 +265,7 @@ class SweepTables:
     row_vid: torch.Tensor      # (N,) int32
     row_card: torch.Tensor     # (N,) int32
     row_upos: torch.Tensor     # (N,) int32
-    row_flags: torch.Tensor    # (N,) int8: ROW_UPDATE | ROW_TALLY
+    row_flags: torch.Tensor    # (N,) int8: ROW_* bits
     row_item: torch.Tensor     # (N + 1,) int32 CSR offsets into items
     it_ftype: torch.Tensor     # (I,) int32
     it_wid: torch.Tensor       # (I,) int32
@@ -237,6 +283,9 @@ class SweepTables:
     map_codes: list            # per step: index into MAPS
     draw_codes: list           # per step: index into DRAWS
     plans: list                # per step: the ColorPlan of its color
+    item_index: list           # per step: its plan items, in table order
+    item0: list                # per step: first item
+    conflict: list             # per step: a row gathers its own color
     present: list              # per step: factor codes present
     ptrs: tuple = ()           # the kernel's table pointers (CUDA only)
     _plan_tensors: dict = dataclasses.field(default_factory=dict)
@@ -250,11 +299,15 @@ class SweepTables:
         return len(self.row0)
 
     def plan_tensors(self, ci: int) -> dict:
-        """Step ``ci``'s plan tensors on the tables' device."""
+        """Step ``ci``'s plan tensors on the tables' device, its items in
+        table order."""
         if ci not in self._plan_tensors:
-            self._plan_tensors[ci] = plan_tensors(self.plans[ci],
-                                                  self.device)
+            self._plan_tensors[ci] = plan_tensors(
+                self.plans[ci], self.device, items=self.item_index[ci])
         return self._plan_tensors[ci]
+
+
+_NO_RANK = np.int64(1) << 62
 
 
 def build_tables(cg: CompiledGraph, schedule: Schedule,
@@ -262,27 +315,46 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
     """Flatten ``cg.plans`` in schedule order into CSR tables on
     ``device``. A row may update when it is a query variable, or an
     evidence variable under ``sample_evidence``; it is tallied iff it
-    may update (itemgrid_pallas.py:426-427)."""
+    may update (itemgrid_pallas.py:426-427). For learning, the clamped
+    chain resamples query rows and the gradient comes from evidence
+    rows (itemgrid_pallas.py:738-739). A step is marked ``conflict``
+    when an item of one of its rows gathers an argument of the step's
+    own color."""
     var_card = np.asarray(cg.var_card, np.int64)
     isev = np.asarray(cg.var_isev, np.int64)
+    color_of = np.asarray(cg.color_of, np.int64)
     upd_v = (isev == EV_QUERY) | (bool(sample_evidence) &
                                   (isev == EV_EVIDENCE))
+    row_bits = (np.where(upd_v, ROW_UPDATE | ROW_TALLY, 0) |
+                np.where(isev == EV_QUERY, ROW_CLAMPED, 0) |
+                np.where(isev == EV_EVIDENCE, ROW_EVIDENCE, 0))
+    rank = None if schedule.arg_rank is None else \
+        np.asarray(schedule.arg_rank, np.int64)
     rows, items, args = [], [], []
     row0, n_rows, n_row_total, n_arg_total = [], [], 0, 0
+    item_index, item0, conflict, n_item_total = [], [], [], 0
     for c in schedule.colors:
         p = cg.plans[c]
         vids = p.cv_vid[p.cv_valid].astype(np.int64)
         n = len(vids)
         iv = np.flatnonzero(p.it_valid)
-        iv = iv[np.argsort(p.it_row[iv], kind="stable")]
+        gathered = p.it_args_valid[iv] & ~p.it_subst[iv]
+        avid = p.it_args_vid[iv].astype(np.int64)
+        if rank is None:
+            iv = iv[np.argsort(p.it_row[iv], kind="stable")]
+        else:
+            key = np.where(gathered, rank[avid], _NO_RANK).min(axis=1) \
+                if len(iv) else np.zeros(0, np.int64)
+            iv = iv[np.lexsort((key, p.it_row[iv]))]
+        conflict.append(bool((color_of[avid[gathered]] == c).any()))
         it_row = p.it_row[iv].astype(np.int64)
         if len(it_row) and it_row.max() >= n:
             raise ValueError("plan of color %d has items on pad rows" % c)
         arity = p.it_arity[iv].astype(np.int64)
         amask = np.arange(p.it_args_vid.shape[1])[None, :] < arity[:, None]
-        flags = np.where(upd_v[vids], ROW_UPDATE | ROW_TALLY, 0)
         rows.append(dict(vid=vids, card=var_card[vids],
-                         upos=np.asarray(schedule.upos)[vids], flags=flags,
+                         upos=np.asarray(schedule.upos)[vids],
+                         flags=row_bits[vids],
                          count=np.bincount(it_row, minlength=n)))
         items.append(dict(ftype=p.it_ftype[iv], wid=p.it_wid[iv],
                           arity=arity, dense=p.it_dense[iv],
@@ -296,8 +368,11 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
                          subst=p.it_subst[iv][amask]))
         row0.append(n_row_total)
         n_rows.append(n)
+        item_index.append(iv)
+        item0.append(n_item_total)
         n_row_total += n
         n_arg_total += int(arity.sum())
+        n_item_total += len(iv)
 
     def cat(parts, key, dtype):
         a = np.concatenate([q[key] for q in parts]) if parts else \
@@ -333,6 +408,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         map_codes=[MAPS.index(m) for m in schedule.maps],
         draw_codes=[DRAWS.index(d) for d in schedule.draws],
         plans=[cg.plans[c] for c in schedule.colors],
+        item_index=item_index, item0=item0, conflict=conflict,
         present=[present_types_of(cg.plans[c].it_ftype)
                  for c in schedule.colors],
     )
@@ -343,20 +419,19 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
 
 def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
                          counts: torch.Tensor, weights: torch.Tensor,
-                         seed977: int, epoch: int, tally: bool) -> None:
+                         seed977: int, epoch: int, tally: bool,
+                         salt_xor: int = 0) -> None:
     """Plain PyTorch version of one kernel launch: resample step ``ci``
     of the sweep in place in ``x`` (V,) and, when ``tally``, add the
-    drawn values into ``counts`` (V, K)."""
+    drawn values into ``counts`` (V, K). Every value is read before any
+    is written."""
     lo, n = t.row0[ci], t.n_rows[ci]
-    pot = color_potentials(t.plan_tensors(ci), t.plans[ci].kmax,
-                           t.present[ci], x, weights)[:n]
-    if pot.shape[1] < t.kmax:
-        pot = torch.nn.functional.pad(pot, (0, t.kmax - pot.shape[1]))
+    pot = _padded_potentials(t, ci, x, weights)
     vid = t.row_vid[lo:lo + n].to(torch.int64)
     card = t.row_card[lo:lo + n]
     u01 = block_uniforms(seed977, salt16_of(epoch, ci),
                          t.row_upos[lo:lo + n], MAPS[t.map_codes[ci]] ==
-                         "tile")
+                         "tile", salt_xor)
     draw = DRAWS[t.draw_codes[ci]]
     if draw == "sigmoid2":
         new = draw_sigmoid2(pot[:, 0], pot[:, 1], u01)
@@ -373,25 +448,43 @@ def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
         counts[vid[hit], val[hit].to(torch.int64)] += 1
 
 
+def _padded_potentials(t: SweepTables, ci: int, x: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Step ``ci``'s potentials (n_rows, t.kmax) from values ``x``."""
+    pot = color_potentials(t.plan_tensors(ci), t.plans[ci].kmax,
+                           t.present[ci], x, weights)[:t.n_rows[ci]]
+    if pot.shape[1] < t.kmax:
+        pot = torch.nn.functional.pad(pot, (0, t.kmax - pot.shape[1]))
+    return pot
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-_LIB = None
+_LIBS = {}
 
 
-def _kernel_lib():
-    """The built sweep library, with its C signature declared."""
-    global _LIB
-    if _LIB is None:
+def _kernel_lib(name: str = "itemgrid_sweep"):
+    """The built library ``csrc/<name>.cu``, with its C signatures
+    declared."""
+    if name not in _LIBS:
         from numbskull_tpu_torch.ops._build import load_library
-        lib = load_library("itemgrid_sweep")
-        fn = lib.nsx_itemgrid_sweep_color
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + \
-            [ctypes.c_void_p]
-        _LIB = lib
-    return _LIB
+        lib = load_library(name)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "itemgrid_sweep":
+            sigs = {"nsx_itemgrid_sweep_color": [P] * 20 + [I] * 8 + [P]}
+        else:
+            sigs = {"nsx_learn_step": [P] * 24 + [I] * 6 + [P],
+                    "nsx_learn_reduce": [P] * 7 + [I] * 2 + [P],
+                    "nsx_learn_update": [P] * 7 + [I] * 4 + [F] * 4 +
+                    [I] * 2 + [P]}
+        for fn_name, argtypes in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 _TABLE_FIELDS = (("row_vid", torch.int32), ("row_card", torch.int32),
@@ -428,11 +521,21 @@ def _table_ptrs(t: SweepTables) -> tuple:
     return tuple(_ptr(getattr(t, name)) for name, _ in _TABLE_FIELDS)
 
 
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_if(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError("%s launch failed: CUDA error %d" % (what, rc))
+
+
 def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
                   counts: torch.Tensor, weights: torch.Tensor,
-                  seed977: int, epoch: int, tally: bool) -> None:
+                  seed977: int, salt16: int, tally: bool) -> None:
     """Launch the CUDA kernel for step ``ci`` on the current stream. A
-    step with no rows launches nothing and counts nothing."""
+    step with no rows launches nothing and counts nothing; a
+    conflicting step reads from a snapshot of ``x``."""
     global KERNEL_LAUNCHES
     _check("x", x, torch.int32, t.device, (t.n_vars,))
     _check("counts", counts, torch.int32, t.device, (t.n_vars, t.kmax))
@@ -442,39 +545,400 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
     if not t.ptrs:
         raise ValueError("sweep tables on %s were not built for the kernel"
                          % t.device)
+    xr = x.clone() if t.conflict[ci] else x
     fn = _kernel_lib().nsx_itemgrid_sweep_color
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    rc = fn(*t.ptrs, _ptr(weights), _ptr(x), _ptr(counts),
+    rc = fn(*t.ptrs, _ptr(weights), _ptr(xr), _ptr(x), _ptr(counts),
             t.row0[ci], t.n_rows[ci], t.kmax, t.map_codes[ci],
-            t.draw_codes[ci], seed977, salt16_of(epoch, ci),
-            int(bool(tally)), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("itemgrid sweep kernel launch failed: CUDA "
-                           "error %d" % rc)
+            t.draw_codes[ci], seed977, salt16, int(bool(tally)),
+            _stream(t.device))
+    _raise_if(rc, "itemgrid sweep kernel")
     KERNEL_LAUNCHES += 1
 
 
 def sweep_color(t: SweepTables, ci: int, x: torch.Tensor,
                 counts: torch.Tensor, weights: torch.Tensor, seed977: int,
-                epoch: int, tally: bool) -> None:
+                epoch: int, tally: bool, salt_xor: int = 0) -> None:
     """One (epoch, color) step, in place. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (errors raise)."""
+    version; CUDA tensors launch the kernel (errors raise).
+    ``salt_xor`` (learning's burn-in) must leave the low 16 bits of the
+    salt alone, where it commutes with adding the block index."""
+    if salt_xor & 0xFFFF:
+        raise ValueError("salt_xor 0x%x touches the block bits" % salt_xor)
     if x.device.type == "cpu":
         color_step_reference(t, ci, x, counts, weights, seed977, epoch,
-                             tally)
+                             tally, salt_xor)
     elif x.device.type == "cuda":
-        _launch_sweep(t, ci, x, counts, weights, seed977, epoch, tally)
+        _launch_sweep(t, ci, x, counts, weights, seed977,
+                      _i32(salt16_of(epoch, ci) ^ salt_xor), tally)
     else:
         raise ValueError("sweep_color: unsupported device %s" % x.device)
 
 
+# ---- learning ------------------------------------------------------------
+
+@dataclasses.dataclass
+class LearnTables:
+    """What learning adds to a graph's SweepTables, built on first use
+    so that inference-only runs upload nothing of it.
+
+    ``sweep`` is the tables under the learn schedule (every step `row`
+    and `cdf`; the tensors are shared). The gradient of step ci sums,
+    per weight, the step's items in a fixed order: ``red_item`` lists
+    each step's items sorted by (weight, item); each weight's run is cut
+    into chunks of at most RED_CHUNK (``ch_start``, ``ch_len``), and
+    ``wt_*`` name, per step, each weight with items and its chunks."""
+
+    sweep: SweepTables
+    it_fv: torch.Tensor        # (I,) float32 featureValue
+    w_fixed: torch.Tensor      # (W,) int8
+    red_item: torch.Tensor     # (I,) int32 item ids, by (step, wid, item)
+    ch_start: torch.Tensor     # (NC,) int32 first entry in red_item
+    ch_len: torch.Tensor       # (NC,) int32
+    wt_wid: torch.Tensor       # (NW,) int32 weight id
+    wt_ch0: torch.Tensor       # (NW,) int32 first chunk
+    wt_nch: torch.Tensor       # (NW,) int32 chunk count
+    ch0: list                  # per step: first chunk
+    n_ch: list                 # per step: chunk count
+    wt0: list                  # per step: first weight entry
+    n_wt: list                 # per step: weight entries
+    item_g: torch.Tensor       # (I,) float32 scratch: per-item gradient
+    item_inc: torch.Tensor     # (I,) int8 scratch: item counted
+    chunk_g: torch.Tensor      # (NC,) float32 scratch: chunk sums
+    chunk_n: torch.Tensor      # (NC,) int32 scratch: chunk counts
+    host: dict                 # numpy copies of red_item, ch_*, wt_*
+    ptrs: dict = dataclasses.field(default_factory=dict)
+    _plain: dict = dataclasses.field(default_factory=dict)
+
+
+def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
+    """The learn tables of ``t`` on its device."""
+    dev = t.device
+    fv = [np.asarray(p.it_fv)[iv] for p, iv in zip(t.plans, t.item_index)]
+    wid = [np.asarray(p.it_wid)[iv].astype(np.int64)
+           for p, iv in zip(t.plans, t.item_index)]
+    red, ch_s, ch_l, w_w, w_c0, w_n = [], [], [], [], [], []
+    ch0, n_ch, wt0, n_wt, nc, nw = [], [], [], [], 0, 0
+    for ci, wl in enumerate(wid):
+        lo = t.item0[ci]
+        order = np.argsort(wl, kind="stable")
+        uw, first, cnt = np.unique(wl[order], return_index=True,
+                                   return_counts=True)
+        nch = -(-cnt // RED_CHUNK)
+        rep = np.repeat(np.arange(len(uw)), nch)
+        within = np.arange(int(nch.sum())) - np.repeat(np.cumsum(nch) - nch,
+                                                       nch)
+        starts = first[rep] + within * RED_CHUNK
+        red.append(lo + order)
+        ch_s.append(lo + starts)
+        ch_l.append(np.minimum(RED_CHUNK, first[rep] + cnt[rep] - starts))
+        w_w.append(uw)
+        w_c0.append(nc + np.cumsum(nch) - nch)
+        w_n.append(nch)
+        ch0.append(nc)
+        n_ch.append(int(nch.sum()))
+        wt0.append(nw)
+        n_wt.append(len(uw))
+        nc += n_ch[-1]
+        nw += n_wt[-1]
+
+    def cat(parts, dtype):
+        a = np.concatenate(parts) if parts else np.zeros(0)
+        return np.ascontiguousarray(a.astype(dtype))
+
+    host = dict(red_item=cat(red, np.int32), ch_start=cat(ch_s, np.int32),
+                ch_len=cat(ch_l, np.int32), wt_wid=cat(w_w, np.int32),
+                wt_ch0=cat(w_c0, np.int32), wt_nch=cat(w_n, np.int32))
+    n_items = t.item0[-1] + len(t.item_index[-1]) if t.n_steps else 0
+
+    def up(a):
+        return torch.as_tensor(a, device=dev)
+
+    lt = LearnTables(
+        sweep=dataclasses.replace(t, map_codes=[MAPS.index("row")] *
+                                  t.n_steps,
+                                  draw_codes=[DRAWS.index("cdf")] *
+                                  t.n_steps),
+        it_fv=up(cat(fv, np.float32)),
+        w_fixed=up(np.asarray(weight_fixed).astype(np.int8)),
+        **{k: up(v) for k, v in host.items()},
+        ch0=ch0, n_ch=n_ch, wt0=wt0, n_wt=n_wt,
+        item_g=torch.zeros(n_items, dtype=torch.float32, device=dev),
+        item_inc=torch.zeros(n_items, dtype=torch.int8, device=dev),
+        chunk_g=torch.zeros(nc, dtype=torch.float32, device=dev),
+        chunk_n=torch.zeros(nc, dtype=torch.int32, device=dev),
+        host=host)
+    if dev.type == "cuda":
+        lt.ptrs = {name: _ptr(getattr(lt, name)) for name in (
+            "it_fv", "w_fixed", "red_item", "ch_start", "ch_len", "wt_wid",
+            "wt_ch0", "wt_nch", "item_g", "item_inc", "chunk_g", "chunk_n")}
+    return lt
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnStep:
+    """One learning epoch's update constants: float32 values (exact as
+    Python floats), computed on the host once per epoch in torch
+    float32 as the TPU kernel computes them (itemgrid_pallas.py:
+    2500-2518, 2765-2766), and shared by the kernel and the plain
+    version."""
+
+    step: float        # step0 * exp(f32(i) * log(decay))
+    shrink: float      # L2: 1 / fma(reg_param, step, 1)
+    l1d: float         # L1: reg_param * step * truncation
+    thresh: float      # L1: truncate where the coin < 1 / truncation
+    regularization: int
+    mean: bool
+    learn_non_evidence: bool
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as an IEEE fma (CUDA's
+    ``__fmaf_rn``), for float32 tensors or numbers.
+
+    The interpret-mode TPU kernel runs on XLA's CPU backend, which
+    contracts ``w * shrink - step * g``, ``w - step * g`` and
+    ``1 + reg * step`` into fmas; the port computes the same fmas. The
+    product is exact in float64; the sum is rounded to odd in float64
+    (its error from a TwoSum decides the last bit), after which rounding
+    to float32 is the correctly rounded fma."""
+    a, b, c = (torch.as_tensor(v, dtype=torch.float32).double()
+               for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def learn_step_of(lp: LearnParams, stepsize: float, decay: float,
+                  i: int) -> LearnStep:
+    """The constants of learning epoch ``i``."""
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    step = f(stepsize) * torch.exp(f(float(i)) * torch.log(f(decay)))
+    reg = f(lp.reg_param)
+    return LearnStep(
+        step=float(step),
+        shrink=float(f(1.0) / fma32(reg, step, 1.0)),
+        l1d=float(reg * step * f(float(lp.truncation))),
+        thresh=float(f(1.0 / lp.truncation)),
+        regularization=int(lp.regularization),
+        mean=lp.grad_agg == "mean",
+        learn_non_evidence=bool(lp.learn_non_evidence))
+
+
+def _learn_salts(epoch: int, ci: int):
+    """(salt16 of the step's draws, salt of the L1 coin)."""
+    salt_base = _i32(int(epoch) * (COLOR_MAX + 1) + int(ci))
+    return salt16_of(epoch, ci), _i32(salt_base ^ WEIGHT_SALT_XOR)
+
+
+def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
+                               xe: torch.Tensor, w: torch.Tensor,
+                               seed: int, epoch: int,
+                               hs: LearnStep) -> None:
+    """Plain PyTorch version of one learn step (the three kernel
+    launches): both chains of step ``ci`` resample in place in ``x``
+    (free) and ``xe`` (clamped), then the weights ``w`` take one SGD
+    step, in place.
+
+    Every value is read before any is written: both chains' potentials,
+    then the `cdf` draws at the global kmax, then each item evaluated at
+    the two drawn values with its other arguments from before the step.
+    An item counts when its row carries the gradient and it is dense or
+    a drawn value hits its d1/d2 slot; its gradient is (eval at the free
+    value - eval at the clamped value) x featureValue. Per weight the
+    gradients sum in the kernels' order (:func:`_weight_sums`)."""
+    t = lt.sweep
+    lo, n = t.row0[ci], t.n_rows[ci]
+    if n == 0:
+        return
+    pd = t.plan_tensors(ci)
+    pot_p = _padded_potentials(t, ci, x, w)
+    pot_e = _padded_potentials(t, ci, xe, w)
+    vid = t.row_vid[lo:lo + n].to(torch.int64)
+    card = t.row_card[lo:lo + n]
+    upos = t.row_upos[lo:lo + n]
+    salt16, salt_w = _learn_salts(epoch, ci)
+    e_new = draw_cdf(pot_e, card, t.kmax, block_uniforms(
+        seed, salt16, upos, False, CLAMPED_SALT_XOR))
+    p_new = draw_cdf(pot_p, card, t.kmax, block_uniforms(
+        seed, salt16, upos, False))
+    flags = t.row_flags[lo:lo + n]
+    upd = (flags & ROW_UPDATE) != 0
+    lrn = upd if hs.learn_non_evidence else (flags & ROW_EVIDENCE) != 0
+    p_val = torch.where(upd, p_new.to(x.dtype), x[vid])
+    e_val = torch.where((flags & ROW_CLAMPED) != 0, e_new.to(xe.dtype),
+                        xe[vid])
+
+    row = pd["it_row"]
+    p_it, e_it = p_val[row], e_val[row]
+    ev_p = _eval_items_at(pd, t.present[ci], x, p_it)
+    ev_e = _eval_items_at(pd, t.present[ci], xe, e_it)
+    hit = (pd["it_d1"] == e_it) | (pd["it_d1"] == p_it) | \
+        (pd["it_d2"] == e_it) | (pd["it_d2"] == p_it)
+    inc = lrn[row] & (pd["it_dense"] | hit)
+    grad = torch.where(inc, (ev_p - ev_e) * pd["it_fv"],
+                       torch.zeros((), dtype=torch.float32,
+                                   device=x.device))
+    x[vid] = p_val
+    xe[vid] = e_val
+
+    gsum, nsum = _weight_sums(lt, ci, grad, inc.to(torch.int32))
+    a, m = lt.wt0[ci], lt.n_wt[ci]
+    wid = lt.wt_wid[a:a + m].to(torch.int64)
+    touched = (nsum > 0) & (lt.w_fixed[wid] == 0)
+    if hs.mean:
+        gsum = gsum / torch.clamp(nsum.to(torch.float32), min=1.0)
+    wv = w[wid]
+    if hs.regularization == 2:
+        new = fma32(wv, hs.shrink, -(hs.step * gsum))
+    else:
+        new = fma32(-hs.step, gsum, wv)
+        if hs.regularization == 1:
+            zero = torch.zeros((), dtype=torch.float32, device=w.device)
+            trunc = torch.where(new > 0,
+                                torch.maximum(zero, new - hs.l1d),
+                                torch.minimum(zero, new + hs.l1d))
+            wi = wid.to(torch.int32)
+            u = hash_uniforms(seed, salt_w, wi >> 7, wi & 127)
+            new = torch.where(u < hs.thresh, trunc, new)
+    w[wid] = torch.where(touched, new, wv)
+
+
+def _eval_items_at(pd: dict, present, chain: torch.Tensor,
+                   value_it: torch.Tensor) -> torch.Tensor:
+    """Each item's factor with its row's variable at ``value_it`` and
+    its other arguments read from ``chain``."""
+    vals = chain[pd["it_args_vid"]].to(torch.int64)
+    sub = torch.where(pd["it_subst"], value_it.to(torch.int64)[:, None],
+                      vals)
+    return eval_factors(pd["it_ftype"], sub, pd["it_args_eq"],
+                        pd["it_args_valid"], pd["it_args_card"],
+                        pd["it_arity"], present)
+
+
+def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
+                 inc: torch.Tensor):
+    """Per weight of step ``ci`` (``wt_wid`` order): the sum of its
+    items' gradients and their count, added in the order of the reduce
+    and update kernels. A chunk of up to RED_CHUNK items, padded with
+    zeros, is a (32, 32) block: lane l adds entries j * 32 + l for j in
+    order, then the 32 lane sums halve pairwise (l + h into l, h = 16,
+    8, 4, 2, 1). A weight adds its chunk sums in chunk order. Explicit
+    elementwise adds only: index_add_ and sum leave the order open."""
+    dev = grad.device
+    if ci not in lt._plain:
+        h = lt.host
+        c0, nc = lt.ch0[ci], lt.n_ch[ci]
+        item_lo = lt.sweep.item0[ci]
+        j = np.arange(RED_CHUNK)[None, :]
+        starts = h["ch_start"][c0:c0 + nc].astype(np.int64)[:, None]
+        lens = h["ch_len"][c0:c0 + nc].astype(np.int64)[:, None]
+        pos = np.minimum(starts + j, len(h["red_item"]) - 1)
+        idx = np.where(j < lens, h["red_item"][pos].astype(np.int64) -
+                       item_lo, -1)
+        a, m = lt.wt0[ci], lt.n_wt[ci]
+        wc0 = h["wt_ch0"][a:a + m].astype(np.int64) - c0
+        wnc = h["wt_nch"][a:a + m].astype(np.int64)
+        lt._plain[ci] = tuple(torch.as_tensor(v, device=dev)
+                              for v in (idx, wc0, wnc))
+    idx, wc0, wnc = lt._plain[ci]
+    if not len(wc0):
+        return (torch.zeros(0, dtype=torch.float32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    pad = idx < 0
+    g = torch.where(pad, 0.0, grad[idx.clamp(min=0)]).view(-1, 32, 32)
+    c = torch.where(pad, 0, inc[idx.clamp(min=0)]).view(-1, 32, 32)
+    acc = torch.zeros_like(g[:, 0, :])
+    cnt = torch.zeros_like(c[:, 0, :])
+    for jj in range(32):
+        acc = acc + g[:, jj, :]
+        cnt = cnt + c[:, jj, :]
+    h = 16
+    while h:
+        acc = acc[:, :h] + acc[:, h:2 * h]
+        cnt = cnt[:, :h] + cnt[:, h:2 * h]
+        h //= 2
+    acc, cnt = acc[:, 0], cnt[:, 0]
+    gsum, nsum = acc[wc0], cnt[wc0]
+    for k in range(1, int(wnc.max())):
+        more = k < wnc
+        at = torch.where(more, wc0 + k, wc0)
+        gsum = torch.where(more, gsum + acc[at], gsum)
+        nsum = torch.where(more, nsum + cnt[at], nsum)
+    return gsum, nsum
+
+
+def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
+                  xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
+                  hs: LearnStep) -> None:
+    """The three CUDA launches of one learn step on the current stream;
+    a launch with no rows, chunks or weights to work on is skipped and
+    not counted. A conflicting step reads from snapshots of the
+    chains."""
+    global LEARN_LAUNCHES
+    t = lt.sweep
+    _check("x", x, torch.int32, t.device, (t.n_vars,))
+    _check("xe", xe, torch.int32, t.device, (t.n_vars,))
+    _check("weights", w, torch.float32, t.device, (t.n_weights,))
+    if t.n_rows[ci] == 0:
+        return
+    if not t.ptrs or not lt.ptrs:
+        raise ValueError("learn tables on %s were not built for the kernel"
+                         % t.device)
+    lib, p = _kernel_lib("itemgrid_learn"), lt.ptrs
+    stream = _stream(t.device)
+    xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
+    salt16, salt_w = _learn_salts(epoch, ci)
+    _raise_if(lib.nsx_learn_step(
+        *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
+        _ptr(xer), p["item_g"], p["item_inc"], t.row0[ci], t.n_rows[ci],
+        t.kmax, seed, salt16, int(hs.learn_non_evidence), stream),
+        "learn step kernel")
+    LEARN_LAUNCHES += 1
+    if lt.n_ch[ci]:
+        _raise_if(lib.nsx_learn_reduce(
+            p["red_item"], p["ch_start"], p["ch_len"], p["item_g"],
+            p["item_inc"], p["chunk_g"], p["chunk_n"], lt.ch0[ci],
+            lt.n_ch[ci], stream), "learn reduce kernel")
+        LEARN_LAUNCHES += 1
+    if lt.n_wt[ci]:
+        _raise_if(lib.nsx_learn_update(
+            p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"],
+            p["chunk_n"], p["w_fixed"], _ptr(w), lt.wt0[ci], lt.n_wt[ci],
+            int(hs.mean), hs.regularization, hs.step, hs.shrink, hs.l1d,
+            hs.thresh, seed, salt_w, stream), "learn update kernel")
+        LEARN_LAUNCHES += 1
+
+
+def learn_color(lt: LearnTables, ci: int, x: torch.Tensor,
+                xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
+                hs: LearnStep) -> None:
+    """One (epoch, color) learn step, in place. CPU tensors run the
+    plain version; CUDA tensors launch the kernels (errors raise)."""
+    if x.device.type == "cpu":
+        learn_color_step_reference(lt, ci, x, xe, w, seed, epoch, hs)
+    elif x.device.type == "cuda":
+        _launch_learn(lt, ci, x, xe, w, seed, epoch, hs)
+    else:
+        raise ValueError("learn_color: unsupported device %s" % x.device)
+
+
 class ItemGridEngine:
-    """Fused chromatic Gibbs inference over a CompiledGraph.
+    """Fused chromatic Gibbs inference and learning over a
+    CompiledGraph.
 
     ``run`` sweeps burn-in plus tallied epochs and returns
     ``(values (V,), counts (V, K))`` in original variable order, as
     tensors on ``device``. There is no cap on the epoch count (tallies
-    are int32)."""
+    are int32). ``learn`` runs the dual-chain SGD and returns
+    ``(weights, free chain, clamped chain)``."""
 
     def __init__(self, cg: CompiledGraph, sample_evidence: bool = True,
                  device="cpu", schedule: Schedule | None = None):
@@ -483,17 +947,21 @@ class ItemGridEngine:
             raise ValueError("cardinality %d > %d" % (cg.kmax, K_MAX_SUP))
         self.cg = cg
         self.device = device
+        self.sample_evidence = bool(sample_evidence)
         self.schedule = schedule or default_schedule(cg)
         self.tables = build_tables(cg, self.schedule, sample_evidence,
                                    device)
+        self._learn = None
+
+    def _tensor(self, value, default, dtype):
+        v = default if value is None else value
+        return torch.as_tensor(v, dtype=dtype, device=self.device).clone()
 
     def run(self, seed: int, burn: int, epochs: int, weight_value=None,
             x0=None):
         cg, dev = self.cg, self.device
-        w = cg.weight_init if weight_value is None else weight_value
-        w = torch.as_tensor(w, dtype=torch.float32, device=dev).contiguous()
-        x = cg.var_init if x0 is None else x0
-        x = torch.as_tensor(x, dtype=torch.int32, device=dev).clone()
+        w = self._tensor(weight_value, cg.weight_init, torch.float32)
+        x = self._tensor(x0, cg.var_init, torch.int32)
         counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
                              device=dev)
         s977 = seed977_of(seed)
@@ -502,3 +970,43 @@ class ItemGridEngine:
                 sweep_color(self.tables, ci, x, counts, w, s977, epoch,
                             epoch >= burn)
         return x, counts
+
+    def learn_tables(self) -> LearnTables:
+        if self._learn is None:
+            self._learn = build_learn_tables(self.tables,
+                                             self.cg.weight_fixed)
+        return self._learn
+
+    def learn(self, seed: int, burn: int, epochs: int, stepsize: float,
+              decay: float = 1.0, lp: LearnParams | None = None,
+              weight_value=None, x0=None, xe0=None):
+        """Dual-chain SGD (PallasItemGridEngine.learn): ``burn`` sweeps
+        of the free chain, then ``epochs`` learning epochs; returns
+        ``(w (W,), x (V,), xe (V,))`` tensors on the engine's device.
+        The engine must be built with ``sample_evidence=True``, so that
+        the free chain resamples evidence too."""
+        if not self.sample_evidence:
+            raise ValueError("learning needs an engine built with "
+                             "sample_evidence=True")
+        lp = lp or LearnParams()
+        if lp.regularization not in (0, 1, 2) or \
+                lp.grad_agg not in ("mean", "sum"):
+            raise ValueError("unsupported learn parameters %s" % (lp,))
+        cg = self.cg
+        w = self._tensor(weight_value, cg.weight_init, torch.float32)
+        x = self._tensor(x0, cg.var_init, torch.int32)
+        xe = self._tensor(xe0, cg.var_init, torch.int32)
+        lt = self.learn_tables()
+        seed = _i32(seed)
+        if burn > 0:
+            counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
+                                 device=self.device)
+            for b in range(burn):
+                for ci in range(lt.sweep.n_steps):
+                    sweep_color(lt.sweep, ci, x, counts, w, seed, b, False,
+                                BURN_SALT_XOR)
+        for i in range(epochs):
+            hs = learn_step_of(lp, stepsize, decay, i)
+            for ci in range(lt.sweep.n_steps):
+                learn_color(lt, ci, x, xe, w, seed, i + LEARN_EPOCH0, hs)
+        return w, x, xe

@@ -3,7 +3,9 @@
 The two packages draw from different streams (the JAX package seeds its
 kernel from jax.random, the port from numpy's SeedSequence), so their
 marginals agree statistically: within 0.05, the Monte-Carlo error of
-2000 epochs. Rows, values and the weights file agree exactly.
+2000 epochs. Rows, values and the weights file agree exactly when
+nothing is learned; learned weights agree statistically (the tolerances
+are stated at each test).
 """
 
 import os
@@ -18,7 +20,7 @@ from numbskull_tpu import numbskull as jax_cli
 from numbskull_tpu_torch import dataloading as port_dl
 from numbskull_tpu_torch import numbskull as port_cli
 from numbskull_tpu_torch.models import (coin_exact_marginal, coin_model,
-                                       ising_grid)
+                                       ising_grid, potts_grid)
 from test_torch_host import coin_fixture
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,7 +86,7 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-l", "5"], ["--checkpoint", "ck.npz"], ["--parts", "2"],
+    ["--checkpoint", "ck.npz"], ["--parts", "2"],
     ["-u", "sqlite:///g.db"], ["--engine", "xla"], ["--engine", "hbm"]])
 def test_cli_unported_flags_raise(tmp_path, flags):
     src = coin_fixture(str(tmp_path / "coin"))
@@ -93,11 +95,89 @@ def test_cli_unported_flags_raise(tmp_path, flags):
                        "--device", "cpu"] + flags)
 
 
+def _weights(path):
+    rows = np.loadtxt(os.path.join(path, "inference_result.out.weights.text"),
+                      ndmin=2)
+    return rows[:, 1]
+
+
+def test_cli_learning_recovers_coin_weights(tmp_path):
+    """-l 150 on the 4000-copy coin graph with evidence drawn from the
+    exact joint (the settings of tests/test_learning.py:29-40): the
+    port's weights within 0.15 of the truth (0.8, -0.5, 0.4) and of the
+    JAX CLI's weights on the same files (measured 0.005 apart)."""
+    src = str(tmp_path / "coin")
+    w, v, f, fm, _, _ = coin_model(4000, 0.8, -0.5, 0.4, evidence=True,
+                                   weight_init=(0.0, 0.0, 0.0),
+                                   fixed=False, seed=3)
+    port_dl.write_factor_graph_files(src, w, v, f, fm)
+    args = [src, "-l", "150", "-s", "0.1", "-d", "0.99", "-r", "1e-4",
+            "-b", "10", "-i", "10", "-q"]
+    out_p, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    ns = port_cli.main(args + ["-o", out_p, "--device", "cpu"])
+    jax_cli.main(args + ["-o", out_j])
+    w_p, w_j = _weights(out_p), _weights(out_j)
+    assert np.abs(w_p - [0.8, -0.5, 0.4]).max() < 0.15
+    assert np.abs(w_p - w_j).max() < 0.15
+    fg = ns.getFactorGraph()
+    np.testing.assert_allclose(fg.getWeights(), w_p, atol=5e-7)
+    # inference continued from the learned free chain, on the CPU
+    assert fg.state.var_value.device == torch.device("cpu")
+    assert fg.learning_total_time > 0
+
+
+def test_cli_learning_card64_matches_xla_engine(tmp_path):
+    """A 24x24 Potts graph of cardinality 64 with 30 % evidence in
+    4x4 blocks of equal values: the JAX package learns it through its
+    XLA GibbsEngine (cardinality above the TPU learn kernel's 32), the
+    port through its learn kernel's plain version. The learned coupling
+    must agree within 0.15 (three seeds of each measured 1.18-1.24, so
+    0.15 is about three times their spread) and be clearly positive."""
+    n = 24
+    w, v, f, fm, _, _ = potts_grid(n, n, card=64, weight=0.0, fixed=False)
+    r, c = np.divmod(np.arange(n * n), n)
+    v["initialValue"] = ((r // 4) * 3 + c // 4) % 64
+    v["isEvidence"] = (np.random.default_rng(0).random(n * n) <
+                       0.3).astype(np.int8)
+    src = str(tmp_path / "potts64")
+    port_dl.write_factor_graph_files(src, w, v, f, fm)
+    args = [src, "-l", "80", "-s", "0.05", "-d", "0.96", "-r", "0.01",
+            "-b", "5", "-i", "5", "-q"]
+    out_p, out_j = str(tmp_path / "port"), str(tmp_path / "jax")
+    port_cli.main(args + ["-o", out_p, "--device", "cpu"])
+    nj = jax_cli.main(args + ["-o", out_j])
+    assert nj.factorGraphs[0]._itemgrid.get(True) is None   # XLA engine
+    w_p, w_j = _weights(out_p), _weights(out_j)
+    assert w_p[0] > 0.8 and w_j[0] > 0.8
+    assert abs(w_p[0] - w_j[0]) < 0.15
+
+
+def test_cli_learning_diagnostics(tmp_path, capsys):
+    """Not quiet: the learning line of the JAX CLI, and with --verbose
+    every weight (diagnosticsLearning)."""
+    src = coin_fixture(str(tmp_path / "coin"))
+    port_cli.main([src, "-l", "3", "-i", "2", "-o", str(tmp_path / "o"),
+                   "--device", "cpu", "--verbose"])
+    out = capsys.readouterr().out
+    assert "FACTOR 0: learning 3 epochs took" in out
+    assert "weightId: 0" in out and "isFixed: False" in out
+
+
 def test_port_imports_no_jax():
-    """In a fresh interpreter: the test process has imported jax."""
+    """In a fresh interpreter, after a learning and an inference run on
+    the CPU: the test process has imported jax."""
     code = ("import sys\n"
-            "import numbskull_tpu_torch.numbskull\n"
+            "import numbskull_tpu_torch.numbskull as cli\n"
+            "import numbskull_tpu_torch.convert\n"
+            "import numbskull_tpu_torch.ops._build\n"
+            "import numbskull_tpu_torch.ops.gibbs\n"
             "import numbskull_tpu_torch.ops.itemgrid\n"
+            "from numbskull_tpu_torch.models import coin_model\n"
+            "ns = cli.NumbSkull(n_learning_epoch=2, n_inference_epoch=2,\n"
+            "                   quiet=True, device='cpu')\n"
+            "ns.loadFactorGraph(*coin_model(4))\n"
+            "ns.learning(out=False)\n"
+            "ns.inference(out=False)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"
