@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (each one that fails exits non-zero; nothing is retried):
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
-   and the build (``make -C native``, then nvcc of the sweep and learn
-   kernels, both at once).
+   and the build (``make -C native``, then nvcc of the sweep, learn and
+   lattice kernels, all three at once).
 2. Kernels against their plain versions on the card.
    Sweep: for coin, Ising 64x64, LF card 3, Potts card 20, 64 and 128,
    and grouped voting at degree 50 (arity 51), 5 burn-in plus 20
@@ -30,13 +30,18 @@ Phases (each one that fails exits non-zero; nothing is retried):
    weights and both chains must be bit-equal. Then an LF graph with
    non-dyadic featureValues learns twice through the kernels: the two
    runs must agree bit for bit.
+   Lattice: ``grid_gibbs`` (kernel #8) against ``grid_gibbs_reference``
+   from one lattice, x and count bit-equal, on odd and even sides, 1 x m
+   and n x 1, 70000 rows, weight 0.4 and -30, a bias, burn-in, and at
+   1024x1024, 2048x2048 and 8192x8192.
 3. Main path, inference: a 1024x1024 Ising graph (1,048,576 boolean
    variables, 2,095,104 EQUAL factors, weight 0.25) written as
    DeepDive binary files, then ``numbskull_tpu_torch.numbskull.main``
-   with -i 500 -b 50 on the GPU. Its outputs are checked, and the
-   kernel's launch count must be (500 + 50) x colors. Then the kernel
-   is held bit for bit against the plain version on the CLI's own
-   tables (2 burn-in plus 3 tallied epochs, 524,288 rows per launch).
+   with -i 500 -b 50 --engine hbm on the GPU. Its outputs are checked,
+   the engine asked for must be counted, and the kernel's launch count
+   must be (500 + 50) x colors. Then the kernel is held bit for bit
+   against the plain version on the CLI's own tables (2 burn-in plus 3
+   tallied epochs, 524,288 rows per launch).
 4. Main path, learning: the coin graph with 200,000 copies (400,000
    variables, 600,000 factors, evidence drawn from the exact joint of
    weights (0.8, -0.5, 0.4)) as DeepDive files, then ``main`` with
@@ -50,8 +55,26 @@ Phases (each one that fails exits non-zero; nothing is retried):
    200,000-copy Snorkel-style LF graph (1.2 M variables), which is
    first held bit for bit against the plain versions as in phase 3;
    with the device busy share of each.
+6. Main path, lattice: ``GridGibbsEngine`` (ops/stencil) at 1024x1024,
+   weight 0.3, 50 burn-in and 200 tallied sweeps on the card, its launch
+   count, and its mean marginal and equal-neighbour share against
+   ``ItemGridEngine`` on ``ising_grid(1024, 1024, 0.3)``; then
+   epoch-differenced rates of kernel and plain version at 1024, 2048 and
+   8192 squared, with the device busy share and device time per kernel.
+7. Main path, ``engine="hbm"``: the 4096x8192 Ising (33,554,432
+   variables, 30 % evidence, learnable weight) through ``compile_graph``
+   and ``FactorGraph(cg, engine="hbm")``: 2 + 10 inference epochs and
+   1 + 3 learning epochs, timed by phase (model, compile, engine build,
+   sweeps) with their launch counts; inference and learning rates, the
+   device time per kernel, and the sweep and learn kernels held bit for
+   bit against their plain versions on the path's own tables at full
+   size (1 burn-in + 1 epoch each), with the plain epochs' times.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (per kernel: main
+path launches, largest difference from the plain version, ms per epoch
+of kernel and plain version, the bound from this run's shapes at the
+H100's 3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M
+path that kernels #6 and #7 of the TPU package served); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
 script.
@@ -61,6 +84,7 @@ from __future__ import annotations
 
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -78,7 +102,23 @@ SWEEP = {"name": "itemgrid_sweep", "route": "cuda",
 LEARN = {"name": "itemgrid_learn", "route": "cuda",
          "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
          "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2045"}
+STENCIL = {"name": "stencil_gibbs", "route": "cuda",
+           "source": "numbskull_tpu_torch/csrc/stencil_gibbs.cu",
+           "replaces": "numbskull_tpu/ops/stencil_pallas.py:29"}
 COIN_TRUTH = (0.8, -0.5, 0.4)
+LATTICE_W = 0.3          # bench.py:48 and :62, the lattice cells' weight
+LATTICES = (1024, 2048, 8192)    # bench.py:375, :381; 8192 beyond VMEM
+# (n, m, weight, bias, burn, epochs): odd and even sides, one row, one
+# column, the antiferromagnet, a bias, burn-in, more rows than a grid's
+# y dimension holds
+STENCIL_FIXTURES = ((8, 8, 0.4, 0.0, 0, 6), (33, 17, 0.4, 0.0, 2, 6),
+                    (32, 48, 0.4, 0.0, 2, 6), (1, 37, 0.4, 0.2, 1, 8),
+                    (41, 1, 0.4, -0.2, 1, 8), (16, 16, -30.0, 0.0, 2, 6),
+                    (19, 24, 0.3, 0.7, 5, 5), (1, 1, 0.4, 0.3, 3, 9),
+                    (70000, 3, 0.4, 0.1, 1, 2))
+HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
+H100_BYTES_PER_S = 3.35e12      # HBM3 peak (data sheet)
+H100_F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 
 
 def fail(msg: str):
@@ -124,27 +164,31 @@ def phase_device(torch):
     if make.returncode != 0:
         fail("make -C native failed:\n" + make.stdout + make.stderr)
     log("native helpers built in %.2f s" % (time.perf_counter() - t0))
-    from numbskull_tpu_torch.ops import _build, itemgrid
+    from numbskull_tpu_torch.ops import _build, itemgrid, stencil_kernel
     t0 = time.perf_counter()
     errors = {}
+    loaders = {"itemgrid_sweep": lambda: itemgrid._kernel_lib(),
+               "itemgrid_learn": lambda: itemgrid._kernel_lib(
+                   "itemgrid_learn"),
+               "stencil_gibbs": stencil_kernel._kernel_lib}
 
     def build(name):
         try:
-            itemgrid._kernel_lib(name)
+            loaders[name]()
         except Exception as err:          # reported below, then fail
             errors[name] = err
 
     threads = [threading.Thread(target=build, args=(name,))
-               for name in ("itemgrid_sweep", "itemgrid_learn")]
+               for name in loaders]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if errors:
         fail("kernel build failed: %s" % errors)
-    log("kernels loaded in %.2f s, both built at once" %
-        (time.perf_counter() - t0))
-    for name in ("itemgrid_sweep", "itemgrid_learn"):
+    log("kernels loaded in %.2f s, all %d built at once" %
+        (time.perf_counter() - t0, len(loaders)))
+    for name in loaders:
         info = _build.BUILD_INFO.get(name)
         log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
                                else "cached"))
@@ -484,9 +528,11 @@ def phase_main_path(torch, workdir):
     pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
     t0 = time.perf_counter()
     ns = cli.main([gdir, "-i", str(epochs), "-b", str(burn), "-o", out,
-                   "-q", "--device", DEVICE])
+                   "-q", "--device", DEVICE, "--engine", "hbm"])
     wall = time.perf_counter() - t0
     launches = pig.KERNEL_LAUNCHES
+    if metrics.snapshot()["counters"].get("engine.requested.hbm") != 1:
+        fail("--engine hbm was not recorded as the engine asked for")
     fg = ns.factorGraphs[0]
     eng = fg.engine(ns.sample_evidence)
     n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
@@ -522,66 +568,6 @@ def phase_main_path(torch, workdir):
     err = check_equal(torch, "ising1024 (CLI tables)", "own", eng,
                       burn=2, epochs=3)
     return launches, ns, err
-
-
-def _time_epochs(torch, fn, epochs):
-    """CUDA-event time (ms) of fn(epochs)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    fn(epochs)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
-def _plain_run(torch, eng, seed, epochs):
-    """ItemGridEngine.run through color_step_reference (the plain
-    version) on the card."""
-    from numbskull_tpu_torch.ops import itemgrid as pig
-    cg, dev = eng.cg, eng.device
-    w = torch.as_tensor(cg.weight_init, dtype=torch.float32, device=dev)
-    x = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
-    counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
-                         device=dev)
-    s977 = pig.seed977_of(seed)
-    for epoch in range(epochs):
-        for ci in range(eng.tables.n_steps):
-            pig.color_step_reference(eng.tables, ci, x, counts, w, s977,
-                                     epoch, True)
-    return x, counts
-
-
-def rate(torch, eng, plain, lo, hi):
-    """Epoch-differenced variable updates per second and ms per epoch."""
-    if plain:
-        def fn(e):
-            _plain_run(torch, eng, 1, e)
-    else:
-        def fn(e):
-            eng.run(1, 0, e)
-    fn(1)                                           # warm up
-    t_lo = min(_time_epochs(torch, fn, lo) for _ in range(2))
-    t_hi = min(_time_epochs(torch, fn, hi) for _ in range(2))
-    per_ms = (t_hi - t_lo) / (hi - lo)
-    return eng.cg.n_vars / (per_ms / 1e3), per_ms
-
-
-def device_busy(torch, fn):
-    """Share of a window's wall time that the device spent in kernels
-    (torch.profiler), or None when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages())
-    return dev_us / wall_us if dev_us > 0 else None
 
 
 def phase_learn_main_path(torch, workdir):
@@ -703,6 +689,18 @@ def _plain_learn(torch, eng, lp, seed, epochs):
     return w
 
 
+def epoch_rate(torch, fn, n_updates, lo, hi, tries=2, warm=True):
+    """Epoch-differenced updates per second and ms per epoch of
+    ``fn(epochs)``, best of ``tries`` per point, after one warm-up epoch
+    when ``warm``."""
+    if warm:
+        fn(1)
+    t_lo = min(_time_epochs(torch, fn, lo) for _ in range(tries))
+    t_hi = min(_time_epochs(torch, fn, hi) for _ in range(tries))
+    per_ms = (t_hi - t_lo) / (hi - lo)
+    return n_updates / (per_ms / 1e3), per_ms
+
+
 def rate(torch, eng, plain, lo, hi, lp=None):
     """Epoch-differenced variable updates per second and ms per epoch of
     inference, or of learning when ``lp`` is given."""
@@ -715,16 +713,84 @@ def rate(torch, eng, plain, lo, hi, lp=None):
     else:
         def fn(e):
             eng.run(1, 0, e)
-    fn(1)                                           # warm up
-    t_lo = min(_time_epochs(torch, fn, lo) for _ in range(2))
-    t_hi = min(_time_epochs(torch, fn, hi) for _ in range(2))
-    per_ms = (t_hi - t_lo) / (hi - lo)
-    return eng.cg.n_vars / (per_ms / 1e3), per_ms
+    return epoch_rate(torch, fn, eng.cg.n_vars, lo, hi)
 
 
-def device_busy(torch, fn):
-    """Share of a window's wall time that the device spent in kernels
-    (torch.profiler), or None when the trace holds no device time."""
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``ops`` float32 operations."""
+    t_b = nbytes / H100_BYTES_PER_S * 1e3
+    t_o = ops / H100_F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _gathered(torch, t, ci):
+    """Distinct variables that step ci's items read from the chains."""
+    lo = t.item0[ci]
+    hi = lo + len(t.item_index[ci])
+    if hi == lo:
+        return 0
+    a0 = int(t.it_arg[lo])
+    a1 = int(t.it_arg[hi - 1]) + int(t.it_arity[hi - 1])
+    vid = t.arg_vid[a0:a1][t.arg_subst[a0:a1] == 0]
+    return int(torch.unique(vid).numel())
+
+
+def sweep_epoch_cost(torch, t):
+    """(bytes, operations) of one inference epoch through the sweep
+    kernel, from this graph's tables: each step reads its rows (17 B),
+    items (25 B) and arguments (13 B) once, the values it gathers once
+    (4 B each) and the weights once, and writes its rows' values (4 B)
+    and tallies (one int32 read and written); operations count each
+    item's evaluation at each candidate (6 per argument + 12) and each
+    row's draw (6 per candidate + 30, the hash included)."""
+    K = t.kmax
+    rows = sum(t.n_rows)
+    items, args = int(t.it_ftype.numel()), int(t.arg_vid.numel())
+    nbytes = rows * (17 + 4 + 8) + items * 25 + args * 13 + 4 * t.n_weights
+    nbytes += 4 * sum(_gathered(torch, t, ci) for ci in range(t.n_steps))
+    ops = K * (6 * args + 12 * items) + rows * (6 * K + 30)
+    return nbytes, ops
+
+
+def learn_epoch_cost(torch, lt):
+    """(bytes, operations) of one learning epoch through the three learn
+    kernels: the sweep's table reads and both chains' gathers and
+    writes, each item's featureValue and place in the weight order
+    (8 B), each chunk's bounds (8 B) and weight entry (12 B), the weights
+    read and written; the per-item and per-chunk scratch between the
+    kernels is not counted. Operations: both chains' potentials and
+    draws, and two more evaluations and a sum per item."""
+    t = lt.sweep
+    K = t.kmax
+    rows = sum(t.n_rows)
+    items, args = int(t.it_ftype.numel()), int(t.arg_vid.numel())
+    nbytes = rows * (17 + 8) + items * (25 + 8) + args * 13
+    nbytes += 8 * sum(_gathered(torch, t, ci) for ci in range(t.n_steps))
+    nbytes += 8 * int(lt.ch_start.numel()) + 12 * int(lt.wt_wid.numel())
+    nbytes += 9 * t.n_weights
+    ops = 2 * (K * (6 * args + 12 * items) + rows * (6 * K + 30))
+    ops += 2 * (6 * args + 12 * items) + 2 * items
+    return nbytes, ops
+
+
+def stencil_epoch_cost(n, m):
+    """(bytes, operations) of one lattice sweep: the lattice and the
+    counts each read once and written once (16 B per cell; the kernel's
+    two launches read the lattice twice, which the bound does not
+    charge); about 45 operations per cell updated (neighbours, degree,
+    fma, hash, exp, draw)."""
+    return 16 * n * m, 45 * n * m
+
+
+def device_busy(torch, fn, by_kernel=None):
+    """Share of a window's wall time that the device spent in kernels and
+    copies (torch.profiler), or None when the trace holds no device time.
+    Only the trace's device rows count: an aten op's row repeats the
+    device time of the kernels it launched. With ``by_kernel`` (a dict),
+    also fills it with {name: (calls, device us)} of those rows; the
+    trace may drop some calls, so a time per call is the reading."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -733,9 +799,23 @@ def device_busy(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages())
+    dev_us = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        dev_us += us
+        if by_kernel is not None:
+            by_kernel[e.key] = (e.count, us)
     return dev_us / wall_us if dev_us > 0 else None
+
+
+def log_kernel_times(by_kernel):
+    """Log each kernel's calls in the trace and device time per call."""
+    for name, (calls, us) in sorted(by_kernel.items(),
+                                    key=lambda kv: -kv[1][1]):
+        log("    %-60.60s %5d calls, %.4f ms per call"
+            % (name, calls, us / 1e3 / calls))
 
 
 def phase_rates(torch, ising_ns, coin_ns, card):
@@ -787,23 +867,276 @@ def phase_rates(torch, ising_ns, coin_ns, card):
     return result, err_sweep, err_learn
 
 
+def compare_stencil(torch, n, m, weight, bias, burn, epochs, seed=7):
+    """Kernel vs plain version of grid_gibbs from one lattice on the card.
+    Returns (equal cells, cells, max abs difference of x and count)."""
+    from numbskull_tpu_torch.ops import stencil_kernel as sk
+    x0 = sk.initial_lattice(seed, n, m, DEVICE)
+    kw = dict(n=n, m=m, weight=weight, bias=bias)
+    xk, ck = sk.grid_gibbs(x0, seed, burn, epochs, **kw)
+    xp, cp = sk.grid_gibbs_reference(x0, seed, burn, epochs, **kw)
+    torch.cuda.synchronize()
+    equal = int(((xk == xp) & (ck == cp)).sum())
+    err = max(int((xk - xp).abs().max()), int((ck - cp).abs().max()))
+    return equal, n * m, err
+
+
+def phase_stencil_compare(torch):
+    """Phase 2, lattice: kernel #8 against its plain version, bit for bit,
+    on the fixtures and at the lattice phase's sizes. Returns the max
+    abs difference seen."""
+    log("== phase 2: lattice kernel vs plain version on the card "
+        "(bit-equal)")
+    worst = 0
+    cases = STENCIL_FIXTURES + tuple((n, n, LATTICE_W, 0.0, 1, 2)
+                                     for n in LATTICES)
+    for n, m, w, b, burn, epochs in cases:
+        eq, tot, err = compare_stencil(torch, n, m, w, b, burn, epochs)
+        log("  lattice %5dx%-5d w %6.2f b %5.2f burn %d epochs %d: %d of %d "
+            "cells equal (x and count), max |diff| %d"
+            % (n, m, w, b, burn, epochs, eq, tot, err))
+        if eq != tot or err != 0:
+            fail("lattice kernel and plain version disagree on %dx%d w %g "
+                 "b %g" % (n, m, w, b))
+        worst = max(worst, err)
+    return worst
+
+
+def _equal_pair_share(x):
+    """Share of a lattice's neighbour pairs with equal values."""
+    eq = (x[1:, :] == x[:-1, :]).sum() + (x[:, 1:] == x[:, :-1]).sum()
+    n, m = x.shape
+    return float(eq) / ((n - 1) * m + n * (m - 1))
+
+
+def phase_lattice(torch, card):
+    """Phase 6: the lattice main path (GridGibbsEngine on the card) at
+    1024x1024, checked against ItemGridEngine on the same model, then
+    epoch-differenced rates at every size of LATTICES. Returns
+    (launches, {n: {"kernel": (ups, ms), "plain": ...}})."""
+    import numpy as np
+
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_color_hint, ising_grid
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops import stencil_kernel as sk
+    from numbskull_tpu_torch.ops.stencil import GridGibbsEngine
+    n = LATTICES[0]
+    burn, epochs = 50, 200
+    log("== phase 6: lattice main path, GridGibbsEngine %dx%d w %.1f on "
+        "the card, %s" % (n, n, LATTICE_W, card))
+    eng = GridGibbsEngine(n, n, LATTICE_W, device=DEVICE)
+    st = eng.init_state(1)
+    sk.STENCIL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    st = eng.inference(st, seed=2, epochs=epochs, burn=burn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.STENCIL_LAUNCHES
+    marg = eng.marginals(st, epochs)
+    m_s, e_s = float(marg.mean()), _equal_pair_share(st.x)
+    log("  inference(%d epochs, burn %d) took %.4f s, %d launches; mean "
+        "marginal %.4f, equal-neighbour share %.4f" % (epochs, burn, wall,
+                                                      launches, m_s, e_s))
+    if launches != 2 * (burn + epochs):
+        fail("lattice launches %d != 2 x (%d + %d)" % (launches, burn,
+                                                        epochs))
+    if marg.shape != (n, n) or not np.isfinite(marg).all() or \
+            int(st.count.max()) > epochs:
+        fail("lattice marginals malformed")
+    w, v, f, fm, dm, _ = ising_grid(n, n, weight=LATTICE_W)
+    cg = compile_graph(w, v, f, fm, domain_mask=dm,
+                       color_hint=ising_color_hint(n, n))
+    x, counts = pig.ItemGridEngine(cg, device=DEVICE).run(3, burn, epochs)
+    m_i = float(counts[:, 1].double().mean()) / epochs
+    e_i = _equal_pair_share(x.view(n, n))
+    log("  ItemGridEngine on ising_grid(%d, %d, %.1f), checkerboard hint: "
+        "mean marginal %.4f, equal-neighbour share %.4f"
+        % (n, n, LATTICE_W, m_i, e_i))
+    if abs(m_s - m_i) > 0.01 or abs(e_s - e_i) > 0.01 or \
+            not 0.45 < m_s < 0.55:
+        fail("lattice engine and itemgrid engine disagree on the model")
+    result = {}
+    for n in LATTICES:
+        keng = GridGibbsEngine(n, n, LATTICE_W, device=DEVICE)
+        x0 = sk.initial_lattice(1, n, n, DEVICE)
+        pts = {"kernel": (20, 220) if n < 8192 else (5, 25),
+               "plain": (2, 6) if n < 8192 else (1, 3)}
+        fns = {"kernel": lambda e, keng=keng: keng.run(1, 0, e),
+               "plain": lambda e, n=n, x0=x0: sk.grid_gibbs_reference(
+                   x0, 1, 0, e, n=n, m=n, weight=LATTICE_W, bias=0.0)}
+        meas = {}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            ups, ms = epoch_rate(torch, fns[which], n * n, *pts[which])
+            meas.setdefault(which, []).append((ups, ms))
+            log("  lattice %4dx%-4d %-6s %.6g variable updates/s, %.5f "
+                "ms/epoch (epochs %d..%d)" % (n, n, which, ups, ms,
+                                              *pts[which]))
+        result[n] = {k: max(vs) for k, vs in meas.items()}
+        by_kernel = {}
+        busy = device_busy(torch, lambda keng=keng: keng.run(1, 0, 50),
+                           by_kernel)
+        log("  lattice %4dx%-4d kernel device busy share over 50 epochs: %s"
+            % (n, n, "not measured (no device time in the trace)"
+               if busy is None else "%.3f" % busy))
+        log_kernel_times(by_kernel)
+    return launches, result
+
+
+def phase_hbm(torch, card):
+    """Phase 7: engine="hbm" at 33.5 M variables through the library entry
+    point (compile_graph, FactorGraph(engine="hbm")): inference and a few
+    learning epochs, the sweep and learn kernels held bit for bit against
+    their plain versions on the path's own tables, and the rates.
+    Returns a dict of what it measured."""
+    import numpy as np
+
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_color_hint, ising_grid
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    n, m = HBM_GRID
+    log("== phase 7: engine='hbm', Ising %dx%d (%d variables) with 30 %% "
+        "evidence on the card, %s" % (n, m, n * m, card))
+    out = {}
+
+    t0 = time.perf_counter()
+    w, v, f, fm, dm, _ = _with_evidence(ising_grid(
+        n, m, weight=LATTICE_W, fixed=False), 0.3, 5)
+    t1 = time.perf_counter()
+    cg = compile_graph(w, v, f, fm, domain_mask=dm,
+                       color_hint=ising_color_hint(n, m))
+    out["model_s"], out["compile_s"] = t1 - t0, time.perf_counter() - t1
+    log("  %dx%d: model %.2f s, compile_graph %.2f s: %d variables, %d "
+        "colors" % (n, m, out["model_s"], out["compile_s"], cg.n_vars,
+                    cg.n_colors))
+    del w, v, f, fm, dm
+    fg = cli.FactorGraph(cg, 0, seed=3, device=DEVICE, engine="hbm")
+    burn, epochs, lrn = 2, 10, 3
+    metrics.reset()
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    fg.inference(burn, epochs, sample_evidence=True)
+    out["launches"] = pig.KERNEL_LAUNCHES
+    lp = LearnParams(regularization=2, reg_param=1e-4)
+    fg.learn(1, lrn, 0.05, 0.99, lp.regularization, lp.reg_param, 1)
+    out["learn_launches"] = pig.LEARN_LAUNCHES
+    out["learn_burn_launches"] = pig.KERNEL_LAUNCHES - out["launches"]
+    tm = metrics.snapshot()["timings"]
+    for k in ("inference.engine_build_s", "inference.sweep_s",
+              "learning.engine_build_s", "learning.sweep_s"):
+        out[k] = tm[k]["total_s"]
+    log("  FactorGraph(engine='hbm'): inference engine build %.2f s, "
+        "%d + %d epochs %.3f s (%d launches); learn tables %.2f s, 1 + %d "
+        "epochs %.3f s (%d learn launches)"
+        % (out["inference.engine_build_s"], burn, epochs,
+           out["inference.sweep_s"], out["launches"],
+           out["learning.engine_build_s"], lrn, out["learning.sweep_s"],
+           out["learn_launches"]))
+    eng = fg.engine(True)
+    lt = eng.learn_tables()
+    n_colors = sum(1 for r in eng.tables.n_rows if r > 0)
+    per_epoch = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
+                    for ci in range(lt.sweep.n_steps)
+                    if lt.sweep.n_rows[ci] > 0)
+    if out["launches"] != (burn + epochs) * n_colors or \
+            out["learn_launches"] != lrn * per_epoch or \
+            out["learn_burn_launches"] != n_colors:
+        fail("hbm path launches %d / %d / %d, expected %d / %d / %d" % (
+            out["launches"], out["learn_launches"],
+            out["learn_burn_launches"], (burn + epochs) * n_colors,
+            lrn * per_epoch, n_colors))
+    marg = fg.full_marginals(epochs)[:, 1]
+    wt = fg.getWeights()
+    log("  mean marginal %.4f over %d variables; weight after learning "
+        "%.6f; max chunks per weight %d" % (
+            float(marg.mean()), len(marg), float(wt[0]),
+            int(lt.wt_nch.max())))
+    if not np.isfinite(marg).all() or not 0.45 < float(marg.mean()) < 0.55 \
+            or float(wt[0]) == LATTICE_W:
+        fail("hbm path outputs malformed or the weight did not move")
+    out["sweep_cost"] = sweep_epoch_cost(torch, eng.tables)
+    out["learn_cost"] = learn_epoch_cost(torch, lt)
+    for which, pts in (("kernel", (4, 24)), ("plain", (1, 2))):
+        out["infer_" + which] = rate(torch, eng, which == "plain", *pts)
+        log("  33.5M inference %-6s %.6g variable updates/s, %.4f ms/epoch "
+            "(epochs %d..%d)" % (which, *out["infer_" + which], *pts))
+    out["learn_kernel"] = rate(torch, eng, False, 2, 6, lp=lp)
+    log("  33.5M learning kernel %.6g variable updates/s, %.4f ms/epoch "
+        "(epochs 2..6)" % out["learn_kernel"])
+    for what, fn, per in (
+            ("inference", lambda: eng.run(1, 0, 20), 20),
+            ("learning", lambda: eng.learn(1, 0, 20, 0.1, 0.99, lp), 20)):
+        by_kernel = {}
+        busy = device_busy(torch, fn, by_kernel)
+        log("  33.5M %s device busy share over %d epochs (set-up "
+            "included): %s" % (what, per, "not measured" if busy is None
+                               else "%.3f" % busy))
+        log_kernel_times(by_kernel)
+    out["err"] = check_equal(torch, "ising33M (hbm)", "own", eng, burn=1,
+                             epochs=1)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["err_learn"] = check_learn_equal(torch, "ising33M (hbm)", eng, lp,
+                                         burn=1, epochs=1)
+    log("  learn comparison at full size took %.1f s"
+        % (time.perf_counter() - t0))
+    out["learn_plain"] = epoch_rate(
+        torch, lambda e: _plain_learn(torch, eng, lp, 1, e), cg.n_vars, 1,
+        2, tries=1, warm=False)
+    log("  33.5M learning plain  %.6g variable updates/s, %.4f ms/epoch "
+        "(epochs 1..2)" % out["learn_plain"])
+    log("  host peak %.1f GB, device peak %.1f GB (plain versions' tensors "
+        "included)" % (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                       / 1e6, torch.cuda.max_memory_allocated() / 1e9))
+    return out
+
+
 def main():
     torch = setup()
     card = card_line()
     phase_device(torch)
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
+    worst_s = phase_stencil_compare(torch)
     with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
         launches, ising_ns, err3 = phase_main_path(torch, work)
         learns, coin_ns, err4 = phase_learn_main_path(torch, work)
         rates, err5, err5_l = phase_rates(torch, ising_ns, coin_ns, card)
+    sweep_cost = sweep_epoch_cost(
+        torch, ising_ns.factorGraphs[0].engine(True).tables)
+    learn_cost = learn_epoch_cost(
+        torch, coin_ns.factorGraphs[0].engine(True).learn_tables())
+    del ising_ns, coin_ns
+    stencil_launches, lattice = phase_lattice(torch, card)
+    hbm = phase_hbm(torch, card)
     sweep = rates[("ising1024", "infer")]
     learn = rates[("coin400k", "learn")]
+    grid = lattice[LATTICES[0]]
     records = [
-        dict(SWEEP, launches=launches, max_abs_err=max(worst, err3, err5),
+        dict(SWEEP, launches=launches, max_abs_err=max(worst, err3, err5,
+                                                       hbm["err"]),
              ms=sweep["kernel"][1], plain_ms=sweep["plain"][1]),
-        dict(LEARN, launches=learns, max_abs_err=max(worst_l, err4, err5_l),
-             ms=learn["kernel"][1], plain_ms=learn["plain"][1])]
+        dict(LEARN, launches=learns, max_abs_err=max(worst_l, err4, err5_l,
+                                                     hbm["err_learn"]),
+             ms=learn["kernel"][1], plain_ms=learn["plain"][1]),
+        dict(STENCIL, launches=stencil_launches, max_abs_err=worst_s,
+             ms=grid["kernel"][1], plain_ms=grid["plain"][1])]
+    for rec, cost in zip(records, (sweep_cost, learn_cost,
+                                   stencil_epoch_cost(LATTICES[0],
+                                                      LATTICES[0]))):
+        rec["bound_ms"], rec["bound_by"] = bound(*cost)
+        rec["library_ms"] = None      # no single PyTorch call does this
+    for rec, key, tpu, cost, what in zip(
+            records, ("launches", "learn_launches"),
+            ("numbskull_tpu/ops/itemgrid_pallas.py:3595",
+             "numbskull_tpu/ops/itemgrid_pallas.py:4027"),
+            (hbm["sweep_cost"], hbm["learn_cost"]), ("infer", "learn")):
+        rec["hbm"] = {"serves": tpu, "launches": hbm[key],
+                      "ms": hbm[what + "_kernel"][1],
+                      "plain_ms": hbm[what + "_plain"][1],
+                      "bound_ms": bound(*cost)[0]}
     log(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

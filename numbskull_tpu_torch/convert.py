@@ -14,6 +14,7 @@ import torch
 
 from numbskull_tpu_torch.compile import ColorPlan, CompiledGraph
 from numbskull_tpu_torch.ops.gibbs import SamplerState
+from numbskull_tpu_torch.ops.stencil import GridState
 
 
 def compiled_graph_from_reference(fields: dict) -> CompiledGraph:
@@ -39,3 +40,13 @@ def sampler_state_from_reference(var_value, var_value_evid, weight_value,
                         var_value_evid=t(var_value_evid, np.int32),
                         weight_value=t(weight_value, np.float32),
                         count=t(count, np.int32))
+
+
+def grid_state_from_reference(x, count, device):
+    """The port's GridState on ``device`` from a JAX ``GridState``'s
+    arrays (``x`` and ``count``, as numpy or anything ``np.asarray``
+    reads)."""
+    return GridState(
+        x=torch.as_tensor(np.array(x, dtype=np.int32), device=device),
+        count=torch.as_tensor(np.array(count, dtype=np.int32),
+                              device=device))

@@ -106,9 +106,11 @@ arguments = [
     (("--engine",),
         {"metavar": "ENGINE", "dest": "engine", "default": "auto",
          "type": str, "choices": ("auto", "xla", "itemgrid", "hbm"),
-         "help": "compute engine: 'auto' and 'itemgrid' run the fused "
-                 "sweep and learn kernels; 'xla' and 'hbm' are not "
-                 "ported yet"}),
+         "help": "compute engine: 'auto', 'itemgrid' and 'hbm' run the "
+                 "fused sweep and learn kernels, which keep every graph "
+                 "in device memory (the TPU package's 'hbm' engine for "
+                 "graphs beyond its VMEM cap is the same kernels here); "
+                 "'xla' is not ported yet"}),
     (("--checkpoint",),
         {"metavar": "CHECKPOINT_FILE", "dest": "checkpoint", "default": "",
          "type": str,
@@ -292,10 +294,18 @@ def check_slice(ns: "NumbSkull") -> None:
         raise _not_ported("--parts > 1", "M4, parallel/*")
     if ns.dburl:
         raise _not_ported("-u/--dburl", "M3, dbsource.py")
-    if ns.engine == "xla":
+    _check_engine(ns.engine)
+
+
+#: --engine values that run the fused kernels (ops/itemgrid)
+KERNEL_ENGINES = ("auto", "itemgrid", "hbm")
+
+
+def _check_engine(engine: str) -> None:
+    if engine == "xla":
         raise _not_ported("--engine xla", "M1b, the XLA GibbsEngine")
-    if ns.engine == "hbm":
-        raise _not_ported("--engine hbm", "kernels #6 and #7")
+    if engine not in KERNEL_ENGINES:
+        raise ValueError("unknown engine %r" % (engine,))
 
 
 class FactorGraph:
@@ -303,9 +313,15 @@ class FactorGraph:
     device, and the inference engine (built on first use).
 
     Role-equivalent of the reference FactorGraph
-    (numbskull/factorgraph.py:27-229)."""
+    (numbskull/factorgraph.py:27-229). ``engine`` is the JAX package's
+    argument: 'auto', 'itemgrid' and 'hbm' all run ItemGridEngine (the
+    port's kernels hold any graph in device memory); each graph adds one
+    to the metrics counter ``engine.requested.<engine>``."""
 
-    def __init__(self, cg, fid: int, seed: int = 0, device="cuda"):
+    def __init__(self, cg, fid: int, seed: int = 0, device="cuda",
+                 engine: str = "auto"):
+        _check_engine(engine)
+        metrics.add("engine.requested." + engine)
         self.cg = cg
         self.fid = fid
         self.seed = int(seed)
@@ -536,7 +552,7 @@ class NumbSkull:
     def _add_graph(self, cg):
         self.factorGraphs.append(
             FactorGraph(cg, len(self.factorGraphs), seed=self.seed,
-                        device=self.device))
+                        device=self.device, engine=self.engine))
 
     def loadFactorGraph(self, weight, variable, factor, fmap, domain_mask,
                         edges, var_copies=1, weight_copies=1,

@@ -385,6 +385,11 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
     row_item = np.concatenate(([0], np.cumsum(counts)))
     if row_item[-1] >= 2 ** 31 or n_arg_total >= 2 ** 31:
         raise ValueError("graph too large for int32 item offsets")
+    # the salt adds the block index upos >> 10 below 65536 (salt16_of)
+    if any(len(r["upos"]) and r["upos"].max() >= RB << 16 for r in rows):
+        raise ValueError("a color has a draw position >= %d: its block "
+                         "index would overflow the salt's 16 bits"
+                         % (RB << 16))
     t = SweepTables(
         kmax=int(cg.kmax), n_vars=int(cg.n_vars),
         n_weights=int(cg.n_weights),

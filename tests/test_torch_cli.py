@@ -87,12 +87,30 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--checkpoint", "ck.npz"], ["--parts", "2"],
-    ["-u", "sqlite:///g.db"], ["--engine", "xla"], ["--engine", "hbm"]])
+    ["-u", "sqlite:///g.db"], ["--engine", "xla"],
+    ["--engine", "hbm", "--checkpoint", "ck.npz"]])
 def test_cli_unported_flags_raise(tmp_path, flags):
     src = coin_fixture(str(tmp_path / "coin"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_cli.main([src, "-i", "10", "-q", "-o", str(tmp_path / "o"),
                        "--device", "cpu"] + flags)
+
+
+def test_cli_engine_hbm_writes_the_itemgrid_bytes(tmp_path):
+    """--engine hbm runs the same kernels as --engine itemgrid (the port
+    keeps every graph in device memory): byte-identical output files,
+    learning included."""
+    src = coin_fixture(str(tmp_path / "coin"))
+    out = {}
+    for engine in ("hbm", "itemgrid"):
+        d = str(tmp_path / engine)
+        port_cli.main([src, "-l", "5", "-i", "20", "-b", "2", "-q", "-o", d,
+                       "--device", "cpu", "--engine", engine])
+        out[engine] = [open(os.path.join(d, name), "rb").read() for name in
+                       ("inference_result.out.text",
+                        "inference_result.out.weights.text")]
+    assert out["hbm"] == out["itemgrid"]
+    assert all(out["hbm"])
 
 
 def _weights(path):
@@ -165,19 +183,23 @@ def test_cli_learning_diagnostics(tmp_path, capsys):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, after a learning and an inference run on
-    the CPU: the test process has imported jax."""
+    the CPU (engine 'hbm') and a lattice run: no jax and no numbskull_tpu
+    (the test process has imported both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
             "import numbskull_tpu_torch.ops._build\n"
             "import numbskull_tpu_torch.ops.gibbs\n"
             "import numbskull_tpu_torch.ops.itemgrid\n"
+            "from numbskull_tpu_torch.ops.stencil import GridGibbsEngine\n"
             "from numbskull_tpu_torch.models import coin_model\n"
             "ns = cli.NumbSkull(n_learning_epoch=2, n_inference_epoch=2,\n"
-            "                   quiet=True, device='cpu')\n"
+            "                   quiet=True, device='cpu', engine='hbm')\n"
             "ns.loadFactorGraph(*coin_model(4))\n"
             "ns.learning(out=False)\n"
             "ns.inference(out=False)\n"
+            "g = GridGibbsEngine(4, 5, 0.3, device='cpu')\n"
+            "g.inference(g.init_state(), seed=1, epochs=3, burn=1)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"
