@@ -69,6 +69,17 @@ Phases (each one that fails exits non-zero; nothing is retried):
    device time per kernel, and the sweep and learn kernels held bit for
    bit against their plain versions on the path's own tables at full
    size (1 burn-in + 1 epoch each), with the plain epochs' times.
+8. Main path, graph-sharded: ``MultiChipItemGridEngine`` on the Ising
+   1024x1024 of phase 3 with 4 shards in one process: ``run`` and
+   ``run_emulated`` (2 burn-in + 3 tallied epochs) bit-equal to each
+   other and to the plain versions on the same shard tables; learning on
+   the grid with a learnable weight and 30 % evidence (1 burn-in + 2
+   epochs) bit-equal to plain; every launch as counted; epoch times at
+   1, 2 and 4 shards with the exchange's share of the device time; the
+   unpack kernel, its plain version and ``index_copy_`` at one replica's
+   share; then 2 processes on the one card over a gloo group (file store
+   in a temporary directory), whose values, counts and learned weights
+   must equal the in-process 2-shard run bit for bit.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -77,7 +88,7 @@ H100's 3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M
 path that kernels #6 and #7 of the TPU package served); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
-script.
+script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only.
 """
 
 from __future__ import annotations
@@ -105,6 +116,19 @@ LEARN = {"name": "itemgrid_learn", "route": "cuda",
 STENCIL = {"name": "stencil_gibbs", "route": "cuda",
            "source": "numbskull_tpu_torch/csrc/stencil_gibbs.cu",
            "replaces": "numbskull_tpu/ops/stencil_pallas.py:29"}
+MC_SWEEP = {"name": "itemgrid_mc_sweep", "route": "cuda",
+            "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
+            "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3259"}
+MC_LEARN = {"name": "itemgrid_mc_learn", "route": "cuda",
+            "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
+            "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3348"}
+MC_ONE_COLOR = {"name": "itemgrid_mc_one_color", "route": "cuda",
+                "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
+                "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3478"}
+EXCHANGE = {"name": "itemgrid_exchange", "route": "cuda",
+            "source": "numbskull_tpu_torch/csrc/itemgrid_exchange.cu",
+            "replaces": "tests/test_itemgrid_mc.py:112"}
+MC_SHARDS = 4            # phase 8's in-process shard count
 COIN_TRUTH = (0.8, -0.5, 0.4)
 LATTICE_W = 0.3          # bench.py:48 and :62, the lattice cells' weight
 LATTICES = (1024, 2048, 8192)    # bench.py:375, :381; 8192 beyond VMEM
@@ -170,6 +194,8 @@ def phase_device(torch):
     loaders = {"itemgrid_sweep": lambda: itemgrid._kernel_lib(),
                "itemgrid_learn": lambda: itemgrid._kernel_lib(
                    "itemgrid_learn"),
+               "itemgrid_exchange": lambda: itemgrid._kernel_lib(
+                   "itemgrid_exchange"),
                "stencil_gibbs": stencil_kernel._kernel_lib}
 
     def build(name):
@@ -1093,10 +1119,345 @@ def phase_hbm(torch, card):
     return out
 
 
+def _mc_graphs():
+    """Phase 8's graphs: the 1024x1024 Ising of phase 3 (weight 0.25,
+    fixed) for inference, and the same grid with a learnable weight and
+    30 % evidence for learning, both under the checkerboard coloring."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_color_hint, ising_grid
+    hint = ising_color_hint(GRID, GRID)
+    w, v, f, fm, dm, _ = ising_grid(GRID, GRID, weight=0.25)
+    infer = compile_graph(w, v, f, fm, domain_mask=dm, color_hint=hint)
+    w, v, f, fm, dm, _ = _with_evidence(ising_grid(
+        GRID, GRID, weight=0.25, fixed=False), 0.3, 6)
+    return infer, compile_graph(w, v, f, fm, domain_mask=dm,
+                                color_hint=hint)
+
+
+def _mc_lp():
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    return LearnParams(regularization=2, reg_param=1e-4)
+
+
+# (seed, burn, epochs) of phase 8's runs and (seed, burn, epochs,
+# stepsize, decay) of its learning
+MC_RUN = (5, 2, 3)
+MC_LEARN_ARGS = (9, 1, 2, 0.05, 0.99)
+
+
+def _gloo_worker(rank, group, out_dir):
+    """One process of phase 8's 2-process gloo run on the one card: the
+    engine over the group (shard ``rank``), run and learn as the parent
+    does in one process; results and the epoch time to ``out_dir``."""
+    import torch
+    from numbskull_tpu_torch.ops.itemgrid_mc import MultiChipItemGridEngine
+    infer, lcg = _mc_graphs()
+    eng = MultiChipItemGridEngine(infer, group=group, device=DEVICE)
+    x, counts = eng.run(*MC_RUN)
+    leng = MultiChipItemGridEngine(lcg, group=group, device=DEVICE)
+    w, xl, xel = leng.learn(*MC_LEARN_ARGS, lp=_mc_lp())
+    times = {}
+    for lo, hi in ((2, 6),):
+        for e in (lo, hi):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(1, 0, e)
+            torch.cuda.synchronize()
+            times[e] = time.perf_counter() - t0
+    torch.save({"x": x.cpu(), "counts": counts.cpu(), "w": w.cpu(),
+                "xl": xl.cpu(), "xel": xel.cpu(),
+                "epoch_ms": (times[6] - times[2]) / 4 * 1e3,
+                "backend": eng.backend},
+               os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def _shard_costs(torch, tables, learn=False):
+    """(bytes, operations) of one epoch over every shard's tables."""
+    costs = [learn_epoch_cost(torch, t) if learn else
+             sweep_epoch_cost(torch, t) for t in tables]
+    return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+
+def _received(eng):
+    """Rows that the replicas receive per epoch: every step's rows, once
+    for each replica that does not own them."""
+    return sum((len(r.offs_host) - 2) * r.offs_host[-1] for r in eng.rows)
+
+
+def phase_mc(torch, card):
+    """Phase 8: the graph-sharded engine (MultiChipItemGridEngine) on the
+    1024x1024 Ising: in-process shards, kernels against plain versions,
+    launches, epoch times at 1, 2 and 4 shards with the exchange's share
+    of the device time, the unpack kernel alone, and a 2-process gloo
+    run on the one card. Returns a dict of what it measured."""
+    import numpy as np
+
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops import itemgrid_mc as mc
+    from numbskull_tpu_torch.parallel import multihost
+    log("== phase 8: graph-sharded engine, Ising %dx%d, %d shards in one "
+        "process and 2 gloo processes on the card, %s"
+        % (GRID, GRID, MC_SHARDS, card))
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    infer, lcg = _mc_graphs()
+    eng = mc.MultiChipItemGridEngine(infer, n_shards=MC_SHARDS,
+                                     device=DEVICE)
+    log("  graphs compiled and %d shards' tables built in %.2f s; rows "
+        "per shard and color %s" % (MC_SHARDS, time.perf_counter() - t0,
+                                    [t.n_rows for t in eng.tables]))
+
+    def counted(fn):
+        pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+        mc.EXCHANGE_LAUNCHES = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (pig.KERNEL_LAUNCHES, pig.LEARN_LAUNCHES,
+                     mc.EXCHANGE_LAUNCHES)
+
+    seed, burn, epochs = MC_RUN
+    (xr, cr), n_run = counted(lambda: eng.run(seed, burn, epochs))
+    (xe, ce), n_emu = counted(lambda: eng.run_emulated(seed, burn, epochs))
+    xp, cp = eng.run(seed, burn, epochs, plain=True)
+    xpe, cpe = eng.run_emulated(seed, burn, epochs, plain=True)
+    torch.cuda.synchronize()
+    busy_steps = sum(1 for t in eng.tables for n in t.n_rows if n > 0)
+    recv_steps = sum(sum(1 for d in range(MC_SHARDS)
+                         if r.offs_host[-1] - (r.offs_host[d + 1] -
+                                               r.offs_host[d]) > 0)
+                     for r in eng.rows)
+    sweeps = (burn + epochs) * busy_steps
+    log("  run: %d sweep and %d unpack launches (expected %d, %d); "
+        "run_emulated: %d sweep, %d unpack (expected %d, 0)"
+        % (n_run[0], n_run[2], sweeps, (burn + epochs) * recv_steps,
+           n_emu[0], n_emu[2], sweeps))
+    if n_run != (sweeps, 0, (burn + epochs) * recv_steps) or \
+            n_emu != (sweeps, 0, 0):
+        fail("sharded engine launches not as counted")
+    out["launches_run"], out["launches_exchange"] = n_run[0], n_run[2]
+    out["launches_emu"] = n_emu[0]
+    pairs = {"run == run_emulated": (xr, cr, xe, ce),
+             "run == plain run": (xr, cr, xp, cp),
+             "run_emulated == plain run_emulated": (xe, ce, xpe, cpe)}
+    out["err_run"] = out["err_emu"] = 0
+    for what, (a, ca, b, cb) in pairs.items():
+        err = max(int((a - b).abs().max()), int((ca - cb).abs().max()))
+        log("  %-36s values %s, counts %s, max |diff| %d" % (
+            what, torch.equal(a, b), torch.equal(ca, cb), err))
+        if not (torch.equal(a, b) and torch.equal(ca, cb)):
+            fail("sharded engine: %s differs" % what)
+    mean = float(cr[:, 1].double().mean()) / epochs
+    log("  tallies %d (= %d epochs x %d variables), mean marginal %.4f"
+        % (int(cr.sum()), epochs, infer.n_vars, mean))
+    if int(cr.sum()) != epochs * infer.n_vars or not 0.4 < mean < 0.6:
+        fail("sharded engine tallies or marginals malformed")
+
+    # learning, kernels against plain, bit for bit
+    leng = mc.MultiChipItemGridEngine(lcg, n_shards=MC_SHARDS,
+                                      device=DEVICE)
+    lp = _mc_lp()
+    lseed, lburn, lepochs, step, decay = MC_LEARN_ARGS
+    (wk, xk, xek), n_lrn = counted(
+        lambda: leng.learn(lseed, lburn, lepochs, step, decay, lp))
+    wp, xlp, xelp = leng.learn(lseed, lburn, lepochs, step, decay, lp,
+                               plain=True)
+    torch.cuda.synchronize()
+    lts = leng.learn_tables()
+    per_step = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
+                   for lt in lts for ci in range(lt.sweep.n_steps)
+                   if lt.sweep.n_rows[ci] > 0) + leng.n_steps
+    lbusy = sum(1 for t in leng.tables for n in t.n_rows if n > 0)
+    lrecv = sum(sum(1 for d in range(MC_SHARDS)
+                    if r.offs_host[-1] - (r.offs_host[d + 1] -
+                                          r.offs_host[d]) > 0)
+                for r in leng.rows)
+    want = (lburn * lbusy, lepochs * per_step, (lburn + lepochs) * lrecv)
+    out["err_learn"] = max(float((wk - wp).abs().max()),
+                           float((xk - xlp).abs().max()),
+                           float((xek - xelp).abs().max()))
+    same = _bits_equal(torch, wk, wp) and torch.equal(xk, xlp) and \
+        torch.equal(xek, xelp)
+    log("  learn %d + %d epochs: weight %.8f (plain %.8f, from %.2f); "
+        "weights and both chains bit-equal %s; launches sweep/learn/unpack "
+        "%s (expected %s)" % (lburn, lepochs, float(wk[0]), float(wp[0]),
+                              float(lcg.weight_init[0]), same, n_lrn,
+                              want))
+    if not same:
+        fail("sharded learn kernels and plain version disagree")
+    if n_lrn != want:
+        fail("sharded learn launches not as counted")
+    if float(wk[0]) == float(lcg.weight_init[0]):
+        fail("sharded learning did not move the weight")
+    out["launches_learn"] = n_lrn[1]
+
+    # epoch times: kernels at 1, 2 and 4 shards, plain at 4; the
+    # exchange's share of the device time from the profiler's rows
+    engines = {MC_SHARDS: eng}
+    for n_g in (1, 2):
+        engines[n_g] = mc.MultiChipItemGridEngine(infer, n_shards=n_g,
+                                                  device=DEVICE)
+    out["run_ms"], out["share"] = {}, {}
+    for n_g in (1, 2, MC_SHARDS):
+        e = engines[n_g]
+        out["run_ms"][n_g] = min(epoch_rate(
+            torch, lambda k, e=e: e.run(1, 0, k), infer.n_vars, 20, 120)[1]
+            for _ in range(2))
+        by_kernel = {}
+        device_busy(torch, lambda e=e: e.run(1, 0, 20), by_kernel)
+        tot = sum(us for _, us in by_kernel.values())
+        unp = sum(us for k, (_, us) in by_kernel.items() if "unpack" in k)
+        out["share"][n_g] = unp / tot if tot else None
+        log("  run, %d shard(s): %.4f ms/epoch (CUDA events, epochs "
+            "20..120); exchange %s of the device time over 20 epochs"
+            % (n_g, out["run_ms"][n_g], "not measured" if not tot else
+               "%.3f" % out["share"][n_g]))
+        log_kernel_times(by_kernel)
+    out["emu_ms"] = epoch_rate(torch, lambda k: eng.run_emulated(1, 0, k),
+                               infer.n_vars, 20, 120)[1]
+    out["run_plain_ms"] = epoch_rate(
+        torch, lambda k: eng.run(1, 0, k, plain=True), infer.n_vars, 1, 3,
+        tries=1)[1]
+    out["emu_plain_ms"] = epoch_rate(
+        torch, lambda k: eng.run_emulated(1, 0, k, plain=True),
+        infer.n_vars, 1, 3, tries=1)[1]
+    out["learn_ms"] = epoch_rate(
+        torch, lambda k: leng.learn(1, 0, k, step, decay, lp),
+        lcg.n_vars, 10, 50)[1]
+    out["learn_plain_ms"] = epoch_rate(
+        torch, lambda k: leng.learn(1, 0, k, step, decay, lp, plain=True),
+        lcg.n_vars, 1, 2, tries=1, warm=False)[1]
+    log("  %d shards: run_emulated %.4f ms/epoch, learning %.4f ms/epoch; "
+        "plain run %.2f, plain run_emulated %.2f, plain learning %.2f "
+        "ms/epoch" % (MC_SHARDS, out["emu_ms"], out["learn_ms"],
+                      out["run_plain_ms"], out["emu_plain_ms"],
+                      out["learn_plain_ms"]))
+    sb, so = _shard_costs(torch, eng.tables)
+    rows = sum(r.offs_host[-1] for r in eng.rows)
+    recv = _received(eng)
+    out["run_cost"] = (sb + 4 * rows + 12 * recv, so)
+    out["emu_cost"] = (sb, so)
+    lb, lo_ = _shard_costs(torch, leng.learn_tables(), learn=True)
+    out["learn_cost"] = (lb + 8 * sum(r.offs_host[-1] for r in leng.rows)
+                         + 20 * _received(leng) + 12 * MC_SHARDS *
+                         lcg.n_weights * leng.n_steps, lo_)
+
+    # the unpack kernel alone, at the main path's shape (step 0, shard
+    # 0's replica receiving the other shards' rows)
+    r0 = eng.rows[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    pay = torch.randint(0, 2, (MC_SHARDS, r0.rs), dtype=torch.int32,
+                        device=DEVICE, generator=gen)
+    xk = torch.full((infer.n_vars,), 7, dtype=torch.int32, device=DEVICE)
+    xq = xk.clone()
+    mc.unpack(r0, pay, xk, None, 0)
+    mc.unpack_reference(r0, pay, xq, None, 0)
+    torch.cuda.synchronize()
+    out["err_unpack"] = int((xk - xq).abs().max())
+    o = r0.offs_host
+    vid = r0.vid[o[1]:].to(torch.int64)
+    buf = torch.cat([pay[d, :o[d + 1] - o[d]]
+                     for d in range(1, MC_SHARDS)])
+    xl = xk.clone()
+    xl.index_copy_(0, vid, buf)
+    n_recv = int(vid.numel())
+    if out["err_unpack"] or not torch.equal(xl, xk):
+        fail("unpack kernel, its plain version and index_copy_ disagree")
+    # a call of the wrapper costs more host time than the kernel takes on
+    # the device, so each is timed both ways: CUDA events over 50 calls
+    # back to back (host included), and the device time of its kernels
+    # per call from the profiler's device rows (the record's numbers)
+    fns = {"kernel": lambda: mc.unpack(r0, pay, xk, None, 0),
+           "plain": lambda: mc.unpack_reference(r0, pay, xq, None, 0),
+           "library": lambda: xl.index_copy_(0, vid, buf)}
+    reps = 50
+    t_host, t_dev = {}, {}
+    for which in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+        fn = fns[which]
+        fn()
+        ms = _time_epochs(torch, lambda k: [fn() for _ in range(k)], reps)
+        t_host[which] = min(t_host.get(which, 1e30), ms / reps)
+        by_kernel = {}
+        device_busy(torch, lambda: [fn() for _ in range(reps)], by_kernel)
+        dev = sum(us for _, us in by_kernel.values()) / reps / 1e3
+        if dev > 0:
+            t_dev[which] = min(t_dev.get(which, 1e30), dev)
+    if len(t_dev) != 3:
+        fail("the profiler showed no device time for the unpack calls")
+    out["unpack_ms"], out["unpack_plain_ms"], out["unpack_lib_ms"] = (
+        t_dev["kernel"], t_dev["plain"], t_dev["library"])
+    out["unpack_cost"] = (12 * n_recv, 0)
+    log("  unpack of %d rows (shard 0's replica, step 0), device time per "
+        "call: kernel %.5f ms, plain %.5f ms, index_copy_ %.5f ms; with "
+        "the host (CUDA events, %d calls): %.5f, %.5f, %.5f ms; equal" % (
+            n_recv, t_dev["kernel"], t_dev["plain"], t_dev["library"],
+            reps, t_host["kernel"], t_host["plain"], t_host["library"]))
+
+    # two processes on the one card, gloo through host memory
+    ref2 = engines[2].run(*MC_RUN)
+    leng2 = mc.MultiChipItemGridEngine(lcg, n_shards=2, device=DEVICE)
+    lref2 = leng2.learn(*MC_LEARN_ARGS, lp=lp)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="nsx_gloo_") as tmp:
+        t0 = time.perf_counter()
+        multihost.spawn(_gloo_worker, 2, (tmp,), backend="gloo")
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, "rank%d.pt" % r))
+               for r in range(2)]
+    ok = all(torch.equal(r["x"], ref2[0].cpu()) and
+             torch.equal(r["counts"], ref2[1].cpu()) and
+             _bits_equal(torch, r["w"], lref2[0].cpu()) and
+             torch.equal(r["xl"], lref2[1].cpu()) and
+             torch.equal(r["xel"], lref2[2].cpu()) for r in res)
+    out["gloo_ms"] = res[0]["epoch_ms"]
+    log("  2 processes, backend %s, transport through host memory (one "
+        "card, not a multi-card number): both ranks' values, counts and "
+        "learned weights == in-process 2 shards: %s; %.4f ms/epoch on "
+        "rank 0 (wall clock, epochs 2..6; in-process 2 shards %.4f); "
+        "spawn to exit %.1f s" % (res[0]["backend"], ok, out["gloo_ms"],
+                                  out["run_ms"][2], wall))
+    if not ok:
+        fail("gloo ranks disagree with the in-process run")
+    return out
+
+
+def mc_records(mcr):
+    """The kernels-line records of kernels #3, #4, #5 and #9."""
+    recs = [
+        dict(MC_SWEEP, launches=mcr["launches_run"],
+             max_abs_err=mcr["err_run"], ms=mcr["run_ms"][MC_SHARDS],
+             plain_ms=mcr["run_plain_ms"], cost=mcr["run_cost"],
+             library_ms=None),
+        dict(MC_LEARN, launches=mcr["launches_learn"],
+             max_abs_err=mcr["err_learn"], ms=mcr["learn_ms"],
+             plain_ms=mcr["learn_plain_ms"], cost=mcr["learn_cost"],
+             library_ms=None),
+        dict(MC_ONE_COLOR, launches=mcr["launches_emu"],
+             max_abs_err=mcr["err_emu"], ms=mcr["emu_ms"],
+             plain_ms=mcr["emu_plain_ms"], cost=mcr["emu_cost"],
+             library_ms=None),
+        dict(EXCHANGE, launches=mcr["launches_exchange"],
+             max_abs_err=mcr["err_unpack"], ms=mcr["unpack_ms"],
+             plain_ms=mcr["unpack_plain_ms"], cost=mcr["unpack_cost"],
+             library_ms=mcr["unpack_lib_ms"])]
+    for rec in recs:
+        rec["bound_ms"], rec["bound_by"] = bound(*rec.pop("cost"))
+    return recs
+
+
 def main():
     torch = setup()
     card = card_line()
     phase_device(torch)
+    if sys.argv[1:] == ["mc"]:        # phases 1 and 8 only
+        records = mc_records(phase_mc(torch, card))
+        log(card)
+        print(json.dumps({"kernels": records}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
     worst_s = phase_stencil_compare(torch)
@@ -1111,6 +1472,7 @@ def main():
     del ising_ns, coin_ns
     stencil_launches, lattice = phase_lattice(torch, card)
     hbm = phase_hbm(torch, card)
+    mcr = phase_mc(torch, card)
     sweep = rates[("ising1024", "infer")]
     learn = rates[("coin400k", "learn")]
     grid = lattice[LATTICES[0]]
@@ -1137,6 +1499,7 @@ def main():
                       "ms": hbm[what + "_kernel"][1],
                       "plain_ms": hbm[what + "_plain"][1],
                       "bound_ms": bound(*cost)[0]}
+    records += mc_records(mcr)
     log(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

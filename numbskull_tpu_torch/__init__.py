@@ -11,7 +11,11 @@ Modules copied from the JAX package (pure numpy, import paths aside):
 ``ops.factor_eval``, ``ops.gibbs`` (state and plain potentials),
 ``ops.itemgrid`` (the fused sweep: CUDA kernel in
 ``csrc/itemgrid_sweep.cu``, its plain version, and the engine),
-``convert`` and ``numbskull`` (the CLI inference path).
+``convert`` and ``numbskull`` (the CLI inference path). Graph-sharded
+runs: ``ops.itemgrid_mc`` (``MultiChipItemGridEngine``, shards in one
+process or one per process of a ``torch.distributed`` group, the
+exchange kernel in ``csrc/itemgrid_exchange.cu``) and
+``parallel.multihost`` (joining the group).
 """
 
 __version__ = "0.1.0"

@@ -41,6 +41,19 @@
 // done yet: fusing the reduce into the step kernel's tail, and one
 // persistent launch per epoch.
 //
+// Graph-sharded learning (ops/itemgrid_mc.py, the counterpart of the
+// TPU's multi-chip learn kernel, itemgrid_pallas.py:3348) runs the step
+// and reduce kernels on one shard's tables with the shard's seed; a
+// non-null `send` / `send_e` packs each row's new value of the free /
+// clamped chain at row - row0 for the exchange. Instead of the update
+// kernel, learn_partial_kernel writes the shard's per-weight (gradient
+// sum, count) as dense (W,) vectors, and after the shards' partials are
+// gathered learn_apply_kernel adds them in shard order 0..n_g-1 from 0.0
+// (the TPU kernel's fixed-order all-reduce, itemgrid_pallas.py:
+// 2486-2493) and applies the same update as learn_update_kernel
+// (apply_weight below). Bound: W x n_g x 8 B read, W x 4 B written per
+// step, a few microseconds at the CLI's sizes.
+//
 // A color that is not independent (--max_colors) reads both chains from
 // snapshots taken before the launch (xr, xer); otherwise xr == x and
 // xer == xe. Draws hash the raw seed (no * 977) with the salts of the TPU
@@ -67,6 +80,8 @@ struct LearnStep {
   const int32_t* xer;  // clamped chain, read (xe, or its snapshot)
   float* item_g;
   int8_t* item_inc;
+  int32_t* send;       // packed free-chain values, or null
+  int32_t* send_e;     // packed clamped-chain values, or null
   int row0, n_rows, kmax;
   uint32_t seed, salt16;
   int lrn_all;         // --learn_non_evidence: every updated row learns
@@ -122,6 +137,8 @@ __global__ void __launch_bounds__(128)
   const int e_val = upd_e ? e_new : p.xer[vid];
   if (upd) p.x[vid] = p_val;
   if (upd_e) p.xe[vid] = e_val;
+  if (p.send) p.send[i] = p_val;
+  if (p.send_e) p.send_e[i] = e_val;
   const bool lrn = p.lrn_all ? upd : (flags & ROW_EVIDENCE) != 0;
 
   for (int it = it0; it < it1; ++it) {
@@ -182,6 +199,28 @@ struct Update {
   uint32_t seed, salt_w;
 };
 
+// one weight's SGD step from its gradient sum g over n counted items;
+// the caller skips weights with n == 0 and fixed weights
+__device__ float apply_weight(float wv, float g, int n, int wid,
+                              const Update& u) {
+  if (u.mean) g = __fdiv_rn(g, static_cast<float>(n));
+  float nw;
+  if (u.regularization == 2) {
+    nw = __fmaf_rn(wv, u.shrink, -__fmul_rn(u.step, g));
+  } else {
+    nw = __fmaf_rn(-u.step, g, wv);
+    if (u.regularization == 1) {
+      const float coin =
+          hash_uniform(u.seed, u.salt_w, static_cast<uint32_t>(wid) >> 7,
+                       static_cast<uint32_t>(wid) & 127u);
+      if (coin < u.thresh)
+        nw = nw > 0.0f ? fmaxf(0.0f, __fsub_rn(nw, u.l1d))
+                       : fminf(0.0f, __fadd_rn(nw, u.l1d));
+    }
+  }
+  return nw;
+}
+
 __global__ void __launch_bounds__(128)
     learn_update_kernel(const int32_t* wt_wid, const int32_t* wt_ch0,
                         const int32_t* wt_nch, const float* chunk_g,
@@ -200,23 +239,49 @@ __global__ void __launch_bounds__(128)
     n += chunk_n[c0 + c];
   }
   if (n == 0 || w_fixed[wid] != 0) return;  // not touched
-  if (u.mean) g = __fdiv_rn(g, static_cast<float>(n));
-  const float wv = w[wid];
-  float nw;
-  if (u.regularization == 2) {
-    nw = __fmaf_rn(wv, u.shrink, -__fmul_rn(u.step, g));
-  } else {
-    nw = __fmaf_rn(-u.step, g, wv);
-    if (u.regularization == 1) {
-      const float coin =
-          hash_uniform(u.seed, u.salt_w, static_cast<uint32_t>(wid) >> 7,
-                       static_cast<uint32_t>(wid) & 127u);
-      if (coin < u.thresh)
-        nw = nw > 0.0f ? fmaxf(0.0f, __fsub_rn(nw, u.l1d))
-                       : fminf(0.0f, __fadd_rn(nw, u.l1d));
-    }
+  w[wid] = apply_weight(w[wid], g, n, wid, u);
+}
+
+// one thread per weight with items in the step: its chunk sums in chunk
+// order, stored densely at gw[wid], nw[wid] (the wrapper zeroed both)
+__global__ void __launch_bounds__(128)
+    learn_partial_kernel(const int32_t* wt_wid, const int32_t* wt_ch0,
+                         const int32_t* wt_nch, const float* chunk_g,
+                         const int32_t* chunk_n, float* gw, int32_t* nw,
+                         int wt0, int n_wt) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n_wt) return;
+  const int c0 = wt_ch0[wt0 + q], nc = wt_nch[wt0 + q];
+  float g = chunk_g[c0];
+  int n = chunk_n[c0];
+#pragma unroll 8
+  for (int c = 1; c < nc; ++c) {
+    g = __fadd_rn(g, chunk_g[c0 + c]);
+    n += chunk_n[c0 + c];
   }
-  w[wid] = nw;
+  const int wid = wt_wid[wt0 + q];
+  gw[wid] = g;
+  nw[wid] = n;
+}
+
+// one thread per weight: the shards' partials (shard d's at
+// payload[d * stride + goff], gradient sums as float bits, then counts)
+// added in shard order from 0.0, then the update
+__global__ void __launch_bounds__(128)
+    learn_apply_kernel(const int32_t* payload, const int8_t* w_fixed,
+                       float* w, int n_g, int stride, int goff, int n_w,
+                       const Update u) {
+  const int wid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (wid >= n_w) return;
+  float g = 0.0f;
+  int n = 0;
+  for (int d = 0; d < n_g; ++d) {
+    const int32_t* part = payload + static_cast<int64_t>(d) * stride + goff;
+    g = __fadd_rn(g, __int_as_float(part[wid]));
+    n += part[n_w + wid];
+  }
+  if (n == 0 || w_fixed[wid] != 0) return;  // not touched
+  w[wid] = apply_weight(w[wid], g, n, wid, u);
 }
 
 template <int KMAX>
@@ -238,15 +303,16 @@ extern "C" int nsx_learn_step(
     const int32_t* it_d2, const int32_t* arg_vid, const int32_t* arg_eq,
     const int32_t* arg_card, const int8_t* arg_subst, const float* it_fv,
     const float* weights, int32_t* x, int32_t* xe, const int32_t* xr,
-    const int32_t* xer, float* item_g, int8_t* item_inc, int row0,
-    int n_rows, int kmax, int seed, int salt16, int lrn_all, void* stream) {
+    const int32_t* xer, float* item_g, int8_t* item_inc, int32_t* send,
+    int32_t* send_e, int row0, int n_rows, int kmax, int seed, int salt16,
+    int lrn_all, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
   const Tables t{row_vid, row_card, row_upos, row_flags, row_item,
                  it_ftype, it_wid,  it_arity, it_arg,    it_dense,
                  it_d1,    it_d2,   arg_vid,  arg_eq,    arg_card,
                  arg_subst};
   const LearnStep p{weights, it_fv, x, xe, xr, xer, item_g, item_inc,
-                    row0, n_rows, kmax, static_cast<uint32_t>(seed),
+                    send, send_e, row0, n_rows, kmax, static_cast<uint32_t>(seed),
                     static_cast<uint32_t>(salt16), lrn_all};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -285,5 +351,39 @@ extern "C" int nsx_learn_update(const int32_t* wt_wid, const int32_t* wt_ch0,
   const int blocks = (n_wt + 127) / 128;
   learn_update_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       wt_wid, wt_ch0, wt_nch, chunk_g, chunk_n, w_fixed, w, wt0, n_wt, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// zero the dense partial, then (n_wt > 0) one launch of the partial kernel
+extern "C" int nsx_learn_partial(const int32_t* wt_wid,
+                                 const int32_t* wt_ch0,
+                                 const int32_t* wt_nch, const float* chunk_g,
+                                 const int32_t* chunk_n, float* gw,
+                                 int32_t* nw, int wt0, int n_wt, int n_w,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_w > 0) {
+    cudaError_t e = cudaMemsetAsync(gw, 0, sizeof(float) * n_w, s);
+    if (e == cudaSuccess) e = cudaMemsetAsync(nw, 0, sizeof(int32_t) * n_w, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (n_wt <= 0) return static_cast<int>(cudaGetLastError());
+  learn_partial_kernel<<<(n_wt + 127) / 128, 128, 0, s>>>(
+      wt_wid, wt_ch0, wt_nch, chunk_g, chunk_n, gw, nw, wt0, n_wt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nsx_learn_apply(const int32_t* payload, const int8_t* w_fixed,
+                               float* w, int n_g, int stride, int goff,
+                               int n_w, int mean, int regularization,
+                               float step, float shrink, float l1d,
+                               float thresh, int seed, int salt_w,
+                               void* stream) {
+  if (n_w <= 0) return static_cast<int>(cudaGetLastError());
+  const Update u{mean, regularization, step, shrink, l1d, thresh,
+                 static_cast<uint32_t>(seed), static_cast<uint32_t>(salt_w)};
+  learn_apply_kernel<<<(n_w + 127) / 128, 128, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      payload, w_fixed, w, n_g, stride, goff, n_w, u);
   return static_cast<int>(cudaGetLastError());
 }

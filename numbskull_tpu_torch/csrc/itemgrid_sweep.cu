@@ -40,6 +40,14 @@
 // (--max_colors lets neighbours share the last color) the wrapper passes
 // a snapshot of x taken before the launch, so each row sees the values
 // from before the step, as the plain version does; otherwise xr == x.
+//
+// Graph-sharded runs (ops/itemgrid_mc.py, the counterpart of the TPU's
+// multi-chip kernel, itemgrid_pallas.py:3259 and :3478) launch this
+// kernel on one shard's tables with the shard's seed and salt. A
+// non-null `send` makes each row also write its value after the step to
+// send[row - row0]: the packed half of the per-color exchange
+// (itemgrid_exchange.cu unpacks it into the other replicas). With a
+// null `send` the kernel runs as before.
 
 #include "itemgrid_common.cuh"
 
@@ -53,6 +61,7 @@ struct Step {
   const int32_t* xr;  // values read (x, or its snapshot)
   int32_t* x;
   int32_t* counts;
+  int32_t* send;      // packed values after the step, or null
   int row0, n_rows, kmax, map_kind, draw_kind;
   uint32_t seed977, salt16;
   int tally;
@@ -114,6 +123,7 @@ __global__ void __launch_bounds__(128)
     v = nv;
     p.x[vid] = nv;
   }
+  if (p.send) p.send[i] = v;
   if (p.tally && (flags & ROW_TALLY)) p.counts[static_cast<int64_t>(vid) * K + v] += 1;
 }
 
@@ -134,14 +144,15 @@ extern "C" int nsx_itemgrid_sweep_color(
     const int32_t* it_arg, const int8_t* it_dense, const int32_t* it_d1,
     const int32_t* it_d2, const int32_t* arg_vid, const int32_t* arg_eq,
     const int32_t* arg_card, const int8_t* arg_subst, const float* weights,
-    const int32_t* xr, int32_t* x, int32_t* counts, int row0, int n_rows, int kmax, int map_kind,
+    const int32_t* xr, int32_t* x, int32_t* counts, int32_t* send, int row0,
+    int n_rows, int kmax, int map_kind,
     int draw_kind, int seed977, int salt16, int tally, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
   const Tables t{row_vid, row_card, row_upos, row_flags, row_item,
                  it_ftype, it_wid,  it_arity, it_arg,    it_dense,
                  it_d1,    it_d2,   arg_vid,  arg_eq,    arg_card,
                  arg_subst};
-  const Step p{weights, xr, x, counts, row0, n_rows, kmax, map_kind, draw_kind,
+  const Step p{weights, xr, x, counts, send, row0, n_rows, kmax, map_kind, draw_kind,
                static_cast<uint32_t>(seed977), static_cast<uint32_t>(salt16),
                tally};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -69,11 +69,13 @@ _PLAN_FIELDS = ("cv_vid", "cv_card", "cv_isev", "cv_valid", "it_row",
                 "it_args_valid", "it_args_card", "it_subst")
 
 
-def plan_tensors(plan: ColorPlan, device, items=None) -> dict:
+def plan_tensors(plan: ColorPlan, device, items=None, rows=None) -> dict:
     """The fields of one ColorPlan that the plain versions read, as
     tensors on ``device`` (index fields as int64, masks as bool,
     ``it_fv`` as float32). ``items`` keeps only those items, in that
     order; each row's potential then sums its items in that order.
+    ``rows`` keeps only those rows (a shard's), renumbered in that
+    order; every kept item must sit on a kept row.
 
     ``slots`` holds, per rank d, the valid items that are the d-th of
     their row, so that ``color_potentials`` adds them in item order."""
@@ -82,6 +84,14 @@ def plan_tensors(plan: ColorPlan, device, items=None) -> dict:
         a = np.asarray(getattr(plan, name))
         arrays[name] = a[items] if items is not None and \
             name.startswith("it_") else a
+    if rows is not None:
+        rows = np.asarray(rows, np.int64)
+        local = np.full(len(plan.cv_vid), -1, np.int64)
+        local[rows] = np.arange(len(rows))
+        for name in _PLAN_FIELDS:
+            if name.startswith("cv_"):
+                arrays[name] = arrays[name][rows]
+        arrays["it_row"] = local[arrays["it_row"]]
     out = {}
     for name, a in arrays.items():
         if a.dtype == np.bool_:

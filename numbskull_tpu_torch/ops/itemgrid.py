@@ -13,7 +13,14 @@ items live in flat CSR tables (:func:`build_tables`), and one launch of
 thread per row. Learning (:func:`learn_color`) launches
 ``csrc/itemgrid_learn.cu`` three times per (epoch, color): both chains'
 draws and per-item gradients, a per-weight reduction in a fixed order,
-and the weight update.
+and the weight update. The graph-sharded engine (``ops/itemgrid_mc.py``)
+runs the same kernels on one shard's tables (:func:`build_tables` with
+``shard``, :func:`shard_rows`) with the shard's seed and salt
+(:func:`mc_seed977_of`, :func:`mc_salt16_of`, :func:`mc_learn_seed_of`),
+packs each row's new value for the exchange through the kernels'
+optional ``send`` pointers, and in learning replaces the update by a
+dense per-shard partial (:func:`learn_color_partial`) and a sum of the
+shards' partials in shard order with the update (:func:`learn_apply`).
 
 What is kept exactly are the inputs to every draw and every weight
 update, so that a run can be held bit for bit against the TPU kernels'
@@ -112,6 +119,34 @@ def salt16_of(epoch: int, ci: int) -> int:
     """``int32(int32(epoch * (COLOR_MAX + 1) + ci) * 65536)``: the salt
     of block 0 of sweep step ``ci`` in ``epoch`` (burn-in counted)."""
     return _i32((int(epoch) * (COLOR_MAX + 1) + int(ci)) * 65536)
+
+
+# Graph-sharded runs (ops/itemgrid_mc.py): shard ``my`` of ``n_g`` draws
+# with its own stream, as the multi-chip TPU kernels do. Each step wraps
+# in int32; wrapping is arithmetic modulo 2**32, so one final wrap gives
+# the same bits.
+
+def mc_seed977_of(seed: int, my: int) -> int:
+    """Inference hash seed of shard ``my``: ``int32(seed * 977 + my)``
+    (itemgrid_pallas.py:1697)."""
+    return _i32(int(seed) * 977 + int(my))
+
+
+def mc_salt16_of(epoch: int, ci: int, n_g: int, my: int) -> int:
+    """Inference salt of shard ``my``'s block 0 of step ``ci``:
+    ``int32(int32(int32(epoch * (COLOR_MAX + 1) + ci) * n_g + my) *
+    65536)`` (itemgrid_pallas.py:1879); the block index added to it is
+    local to the shard. At n_g = 1 it is :func:`salt16_of`."""
+    return _i32(((int(epoch) * (COLOR_MAX + 1) + int(ci)) * int(n_g) +
+                 int(my)) * 65536)
+
+
+def mc_learn_seed_of(seed: int, my: int) -> int:
+    """Learning draw seed of shard ``my``: ``int32(seed + my)``
+    (itemgrid_pallas.py:2134). Learning salts are the single-device
+    ones with local block indices, and the L1 coin keeps the base
+    seed."""
+    return _i32(int(seed) + int(my))
 
 
 def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -287,6 +322,8 @@ class SweepTables:
     item0: list                # per step: first item
     conflict: list             # per step: a row gathers its own color
     present: list              # per step: factor codes present
+    row_index: list = None     # per step: the table rows' color ranks
+    #                            (a shard's tables); None: all, in order
     ptrs: tuple = ()           # the kernel's table pointers (CUDA only)
     _plan_tensors: dict = dataclasses.field(default_factory=dict)
 
@@ -303,15 +340,33 @@ class SweepTables:
         table order."""
         if ci not in self._plan_tensors:
             self._plan_tensors[ci] = plan_tensors(
-                self.plans[ci], self.device, items=self.item_index[ci])
+                self.plans[ci], self.device, items=self.item_index[ci],
+                rows=None if self.row_index is None else
+                self.row_index[ci])
         return self._plan_tensors[ci]
 
 
 _NO_RANK = np.int64(1) << 62
 
 
+def shard_rows(upos: np.ndarray, n_g: int, d: int):
+    """The split rule of ``shard_schedule`` (itemgrid_pallas.py:3130):
+    of a step whose rows have draw positions ``upos``, shard ``d`` of
+    ``n_g`` owns the rows with a position in ``[d*nb*RB, (d+1)*nb*RB)``,
+    ``nb = ceil(len(upos) / (n_g*RB))`` blocks. Returns (the owned rows'
+    indices in step order, the shard's first position ``d*nb*RB``)."""
+    upos = np.asarray(upos, np.int64)
+    nb = -(-len(upos) // (n_g * RB))
+    if len(upos) and upos.max() >= nb * n_g * RB:
+        raise ValueError("draw position %d beyond the %d x %d blocks of "
+                         "the shards" % (upos.max(), n_g, nb))
+    lo = d * nb * RB
+    return np.flatnonzero((upos >= lo) & (upos < lo + nb * RB)), lo
+
+
 def build_tables(cg: CompiledGraph, schedule: Schedule,
-                 sample_evidence: bool, device) -> SweepTables:
+                 sample_evidence: bool, device,
+                 shard: tuple | None = None) -> SweepTables:
     """Flatten ``cg.plans`` in schedule order into CSR tables on
     ``device``. A row may update when it is a query variable, or an
     evidence variable under ``sample_evidence``; it is tallied iff it
@@ -319,7 +374,11 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
     chain resamples query rows and the gradient comes from evidence
     rows (itemgrid_pallas.py:738-739). A step is marked ``conflict``
     when an item of one of its rows gathers an argument of the step's
-    own color."""
+    own color.
+
+    ``shard=(d, n_g)`` keeps only shard d's rows of every step
+    (:func:`shard_rows`), with their items and arguments, and makes
+    their draw positions local to the shard."""
     var_card = np.asarray(cg.var_card, np.int64)
     isev = np.asarray(cg.var_isev, np.int64)
     color_of = np.asarray(cg.color_of, np.int64)
@@ -330,30 +389,42 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
                 np.where(isev == EV_EVIDENCE, ROW_EVIDENCE, 0))
     rank = None if schedule.arg_rank is None else \
         np.asarray(schedule.arg_rank, np.int64)
+    upos_all = np.asarray(schedule.upos, np.int64)
     rows, items, args = [], [], []
     row0, n_rows, n_row_total, n_arg_total = [], [], 0, 0
     item_index, item0, conflict, n_item_total = [], [], [], 0
+    row_index = [] if shard is not None else None
     for c in schedule.colors:
         p = cg.plans[c]
         vids = p.cv_vid[p.cv_valid].astype(np.int64)
-        n = len(vids)
         iv = np.flatnonzero(p.it_valid)
+        it_local = p.it_row
+        lo = 0
+        if shard is not None:
+            sel, lo = shard_rows(upos_all[vids], shard[1], shard[0])
+            local = np.full(len(vids) + 1, -1, np.int64)
+            local[sel] = np.arange(len(sel))
+            iv = iv[local[np.minimum(p.it_row[iv], len(vids))] >= 0]
+            it_local = local[np.minimum(p.it_row, len(vids))]
+            vids = vids[sel]
+            row_index.append(sel)
+        n = len(vids)
         gathered = p.it_args_valid[iv] & ~p.it_subst[iv]
         avid = p.it_args_vid[iv].astype(np.int64)
         if rank is None:
-            iv = iv[np.argsort(p.it_row[iv], kind="stable")]
+            iv = iv[np.argsort(it_local[iv], kind="stable")]
         else:
             key = np.where(gathered, rank[avid], _NO_RANK).min(axis=1) \
                 if len(iv) else np.zeros(0, np.int64)
-            iv = iv[np.lexsort((key, p.it_row[iv]))]
+            iv = iv[np.lexsort((key, it_local[iv]))]
         conflict.append(bool((color_of[avid[gathered]] == c).any()))
-        it_row = p.it_row[iv].astype(np.int64)
+        it_row = np.asarray(it_local[iv], np.int64)
         if len(it_row) and it_row.max() >= n:
             raise ValueError("plan of color %d has items on pad rows" % c)
         arity = p.it_arity[iv].astype(np.int64)
         amask = np.arange(p.it_args_vid.shape[1])[None, :] < arity[:, None]
         rows.append(dict(vid=vids, card=var_card[vids],
-                         upos=np.asarray(schedule.upos)[vids],
+                         upos=upos_all[vids] - lo,
                          flags=row_bits[vids],
                          count=np.bincount(it_row, minlength=n)))
         items.append(dict(ftype=p.it_ftype[iv], wid=p.it_wid[iv],
@@ -416,6 +487,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         item_index=item_index, item0=item0, conflict=conflict,
         present=[present_types_of(cg.plans[c].it_ftype)
                  for c in schedule.colors],
+        row_index=row_index,
     )
     if t.device.type == "cuda":
         t.ptrs = _table_ptrs(t)
@@ -425,18 +497,21 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
 def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
                          counts: torch.Tensor, weights: torch.Tensor,
                          seed977: int, epoch: int, tally: bool,
-                         salt_xor: int = 0) -> None:
+                         salt_xor: int = 0, salt16: int | None = None,
+                         send: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of one kernel launch: resample step ``ci``
     of the sweep in place in ``x`` (V,) and, when ``tally``, add the
     drawn values into ``counts`` (V, K). Every value is read before any
-    is written."""
+    is written. ``salt16`` replaces ``salt16_of(epoch, ci)`` (a shard's
+    stream); ``send`` receives the rows' values after the step, in row
+    order (the packed half of the exchange)."""
     lo, n = t.row0[ci], t.n_rows[ci]
     pot = _padded_potentials(t, ci, x, weights)
     vid = t.row_vid[lo:lo + n].to(torch.int64)
     card = t.row_card[lo:lo + n]
-    u01 = block_uniforms(seed977, salt16_of(epoch, ci),
-                         t.row_upos[lo:lo + n], MAPS[t.map_codes[ci]] ==
-                         "tile", salt_xor)
+    u01 = block_uniforms(seed977, salt16_of(epoch, ci) if salt16 is None
+                         else salt16, t.row_upos[lo:lo + n],
+                         MAPS[t.map_codes[ci]] == "tile", salt_xor)
     draw = DRAWS[t.draw_codes[ci]]
     if draw == "sigmoid2":
         new = draw_sigmoid2(pot[:, 0], pot[:, 1], u01)
@@ -448,6 +523,8 @@ def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
     upd = (flags & ROW_UPDATE) != 0
     val = torch.where(upd, new.to(x.dtype), x[vid])
     x[vid] = val
+    if send is not None:
+        send[:n] = val
     if tally:
         hit = (flags & ROW_TALLY) != 0
         counts[vid[hit], val[hit].to(torch.int64)] += 1
@@ -478,11 +555,16 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
         lib = load_library(name)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "itemgrid_sweep":
-            sigs = {"nsx_itemgrid_sweep_color": [P] * 20 + [I] * 8 + [P]}
+            sigs = {"nsx_itemgrid_sweep_color": [P] * 21 + [I] * 8 + [P]}
+        elif name == "itemgrid_exchange":
+            sigs = {"nsx_exchange_unpack": [P] * 5 + [I] * 6 + [P]}
         else:
-            sigs = {"nsx_learn_step": [P] * 24 + [I] * 6 + [P],
+            sigs = {"nsx_learn_step": [P] * 26 + [I] * 6 + [P],
                     "nsx_learn_reduce": [P] * 7 + [I] * 2 + [P],
                     "nsx_learn_update": [P] * 7 + [I] * 4 + [F] * 4 +
+                    [I] * 2 + [P],
+                    "nsx_learn_partial": [P] * 7 + [I] * 3 + [P],
+                    "nsx_learn_apply": [P] * 3 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P]}
         for fn_name, argtypes in sigs.items():
             fn = getattr(lib, fn_name)
@@ -535,16 +617,32 @@ def _raise_if(rc: int, what: str) -> None:
         raise RuntimeError("%s launch failed: CUDA error %d" % (what, rc))
 
 
+def _send_ptr(name: str, send, device, n: int):
+    """The pointer of a pack buffer of at least ``n`` int32 values, or
+    NULL when there is none."""
+    if send is None:
+        return ctypes.c_void_p(None)
+    _check(name, send, torch.int32, device)
+    if send.dim() != 1 or send.numel() < n:
+        raise ValueError("%s holds %d values, the step has %d rows"
+                         % (name, send.numel(), n))
+    return _ptr(send)
+
+
 def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
                   counts: torch.Tensor, weights: torch.Tensor,
-                  seed977: int, salt16: int, tally: bool) -> None:
+                  seed977: int, salt16: int, tally: bool,
+                  send: torch.Tensor | None = None) -> None:
     """Launch the CUDA kernel for step ``ci`` on the current stream. A
     step with no rows launches nothing and counts nothing; a
-    conflicting step reads from a snapshot of ``x``."""
+    conflicting step reads from a snapshot of ``x``. With ``send``, the
+    kernel also writes each row's value after the step to
+    ``send[row - row0]``."""
     global KERNEL_LAUNCHES
     _check("x", x, torch.int32, t.device, (t.n_vars,))
     _check("counts", counts, torch.int32, t.device, (t.n_vars, t.kmax))
     _check("weights", weights, torch.float32, t.device, (t.n_weights,))
+    send_p = _send_ptr("send", send, t.device, t.n_rows[ci])
     if t.n_rows[ci] == 0:
         return
     if not t.ptrs:
@@ -553,7 +651,7 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
     xr = x.clone() if t.conflict[ci] else x
     fn = _kernel_lib().nsx_itemgrid_sweep_color
     rc = fn(*t.ptrs, _ptr(weights), _ptr(xr), _ptr(x), _ptr(counts),
-            t.row0[ci], t.n_rows[ci], t.kmax, t.map_codes[ci],
+            send_p, t.row0[ci], t.n_rows[ci], t.kmax, t.map_codes[ci],
             t.draw_codes[ci], seed977, salt16, int(bool(tally)),
             _stream(t.device))
     _raise_if(rc, "itemgrid sweep kernel")
@@ -562,19 +660,24 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
 
 def sweep_color(t: SweepTables, ci: int, x: torch.Tensor,
                 counts: torch.Tensor, weights: torch.Tensor, seed977: int,
-                epoch: int, tally: bool, salt_xor: int = 0) -> None:
+                epoch: int, tally: bool, salt_xor: int = 0,
+                salt16: int | None = None,
+                send: torch.Tensor | None = None) -> None:
     """One (epoch, color) step, in place. CPU tensors run the plain
     version; CUDA tensors launch the kernel (errors raise).
     ``salt_xor`` (learning's burn-in) must leave the low 16 bits of the
-    salt alone, where it commutes with adding the block index."""
+    salt alone, where it commutes with adding the block index.
+    ``salt16`` replaces ``salt16_of(epoch, ci)`` and ``send`` receives
+    the rows' values after the step (see :func:`color_step_reference`)."""
     if salt_xor & 0xFFFF:
         raise ValueError("salt_xor 0x%x touches the block bits" % salt_xor)
     if x.device.type == "cpu":
         color_step_reference(t, ci, x, counts, weights, seed977, epoch,
-                             tally, salt_xor)
+                             tally, salt_xor, salt16, send)
     elif x.device.type == "cuda":
+        s16 = salt16_of(epoch, ci) if salt16 is None else salt16
         _launch_sweep(t, ci, x, counts, weights, seed977,
-                      _i32(salt16_of(epoch, ci) ^ salt_xor), tally)
+                      _i32(s16 ^ salt_xor), tally, send)
     else:
         raise ValueError("sweep_color: unsupported device %s" % x.device)
 
@@ -737,10 +840,10 @@ def learn_step_of(lp: LearnParams, stepsize: float, decay: float,
         learn_non_evidence=bool(lp.learn_non_evidence))
 
 
-def _learn_salts(epoch: int, ci: int):
-    """(salt16 of the step's draws, salt of the L1 coin)."""
-    salt_base = _i32(int(epoch) * (COLOR_MAX + 1) + int(ci))
-    return salt16_of(epoch, ci), _i32(salt_base ^ WEIGHT_SALT_XOR)
+def _coin_salt(epoch: int, ci: int) -> int:
+    """The salt of step ``ci``'s L1 coin (the draws use salt16_of)."""
+    return _i32(_i32(int(epoch) * (COLOR_MAX + 1) + int(ci)) ^
+                WEIGHT_SALT_XOR)
 
 
 def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
@@ -759,17 +862,34 @@ def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
     a drawn value hits its d1/d2 slot; its gradient is (eval at the free
     value - eval at the clamped value) x featureValue. Per weight the
     gradients sum in the kernels' order (:func:`_weight_sums`)."""
+    if lt.sweep.n_rows[ci] == 0:
+        return
+    gsum, nsum = learn_rows_reference(lt, ci, x, xe, w, seed, epoch, hs)
+    a, m = lt.wt0[ci], lt.n_wt[ci]
+    _update_weights_reference(w, lt.wt_wid[a:a + m].to(torch.int64), gsum,
+                              nsum, lt.w_fixed, seed,
+                              _coin_salt(epoch, ci), hs)
+
+
+def learn_rows_reference(lt: LearnTables, ci: int, x: torch.Tensor,
+                         xe: torch.Tensor, w: torch.Tensor, seed: int,
+                         epoch: int, hs: LearnStep,
+                         send: torch.Tensor | None = None,
+                         send_e: torch.Tensor | None = None):
+    """Both chains' half of :func:`learn_color_step_reference` (the step
+    and reduce kernels): resample step ``ci`` in place and return, per
+    weight of the step (``wt_wid`` order), the gradient sum and count.
+    ``send`` / ``send_e`` receive the rows' values of each chain after
+    the step, in row order."""
     t = lt.sweep
     lo, n = t.row0[ci], t.n_rows[ci]
-    if n == 0:
-        return
     pd = t.plan_tensors(ci)
     pot_p = _padded_potentials(t, ci, x, w)
     pot_e = _padded_potentials(t, ci, xe, w)
     vid = t.row_vid[lo:lo + n].to(torch.int64)
     card = t.row_card[lo:lo + n]
     upos = t.row_upos[lo:lo + n]
-    salt16, salt_w = _learn_salts(epoch, ci)
+    salt16 = salt16_of(epoch, ci)
     e_new = draw_cdf(pot_e, card, t.kmax, block_uniforms(
         seed, salt16, upos, False, CLAMPED_SALT_XOR))
     p_new = draw_cdf(pot_p, card, t.kmax, block_uniforms(
@@ -793,11 +913,21 @@ def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
                                    device=x.device))
     x[vid] = p_val
     xe[vid] = e_val
+    if send is not None:
+        send[:n] = p_val
+    if send_e is not None:
+        send_e[:n] = e_val
+    return _weight_sums(lt, ci, grad, inc.to(torch.int32))
 
-    gsum, nsum = _weight_sums(lt, ci, grad, inc.to(torch.int32))
-    a, m = lt.wt0[ci], lt.n_wt[ci]
-    wid = lt.wt_wid[a:a + m].to(torch.int64)
-    touched = (nsum > 0) & (lt.w_fixed[wid] == 0)
+
+def _update_weights_reference(w: torch.Tensor, wid: torch.Tensor,
+                              gsum: torch.Tensor, nsum: torch.Tensor,
+                              w_fixed: torch.Tensor, seed: int, salt_w: int,
+                              hs: LearnStep) -> None:
+    """One SGD step of weights ``wid`` (int64) in ``w``, in place, from
+    their gradient sums and counts; weights counted by no item, and
+    fixed weights, keep their value. The L1 coin hashes ``seed``."""
+    touched = (nsum > 0) & (w_fixed[wid] == 0)
     if hs.mean:
         gsum = gsum / torch.clamp(nsum.to(torch.float32), min=1.0)
     wv = w[wid]
@@ -814,6 +944,49 @@ def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
             u = hash_uniforms(seed, salt_w, wi >> 7, wi & 127)
             new = torch.where(u < hs.thresh, trunc, new)
     w[wid] = torch.where(touched, new, wv)
+
+
+def learn_color_partial_reference(lt: LearnTables, ci: int,
+                                  x: torch.Tensor, xe: torch.Tensor,
+                                  w: torch.Tensor, seed: int, epoch: int,
+                                  hs: LearnStep, part: torch.Tensor,
+                                  send: torch.Tensor | None = None,
+                                  send_e: torch.Tensor | None = None) -> None:
+    """Plain version of :func:`learn_color_partial` (the step, reduce
+    and partial kernels): the shard's per-weight sums of step ``ci`` as
+    dense vectors, ``part`` (2W,) int32 = (gradient sums as float32
+    bits, counts), zero for weights not in the step."""
+    W = lt.w_fixed.numel()
+    part.zero_()
+    if lt.sweep.n_rows[ci] == 0:
+        return
+    gsum, nsum = learn_rows_reference(lt, ci, x, xe, w, seed, epoch, hs,
+                                      send, send_e)
+    a, m = lt.wt0[ci], lt.n_wt[ci]
+    wid = lt.wt_wid[a:a + m].to(torch.int64)
+    part[:W].view(torch.float32)[wid] = gsum
+    part[W:2 * W][wid] = nsum
+
+
+def learn_apply_reference(payload: torch.Tensor, goff: int,
+                          w_fixed: torch.Tensor, w: torch.Tensor,
+                          seed: int, epoch: int, ci: int,
+                          hs: LearnStep) -> None:
+    """Plain version of the apply kernel: every shard's partial of step
+    ``ci`` (``payload`` (n_g, stride) int32, the partial at ``goff``)
+    added in shard order 0..n_g-1 from 0.0 (itemgrid_pallas.py:
+    2486-2493), then one SGD step of every weight, in place; the L1
+    coin hashes the base ``seed``, so every shard applies the same
+    update."""
+    W = w.numel()
+    g = torch.zeros(W, dtype=torch.float32, device=w.device)
+    n = torch.zeros(W, dtype=torch.int32, device=w.device)
+    for d in range(payload.shape[0]):
+        g = g + payload[d, goff:goff + W].view(torch.float32)
+        n = n + payload[d, goff + W:goff + 2 * W]
+    _update_weights_reference(
+        w, torch.arange(W, device=w.device), g, n, w_fixed, seed,
+        _coin_salt(epoch, ci), hs)
 
 
 def _eval_items_at(pd: dict, present, chain: torch.Tensor,
@@ -880,32 +1053,34 @@ def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
     return gsum, nsum
 
 
-def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
-                  xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
-                  hs: LearnStep) -> None:
-    """The three CUDA launches of one learn step on the current stream;
-    a launch with no rows, chunks or weights to work on is skipped and
-    not counted. A conflicting step reads from snapshots of the
-    chains."""
+def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
+                       xe: torch.Tensor, w: torch.Tensor, seed: int,
+                       epoch: int, hs: LearnStep, send=None,
+                       send_e=None) -> bool:
+    """The step and reduce launches of one learn step on the current
+    stream; returns False, launching nothing, for a step with no rows.
+    A launch with no chunks to work on is skipped and not counted. A
+    conflicting step reads from snapshots of the chains."""
     global LEARN_LAUNCHES
     t = lt.sweep
     _check("x", x, torch.int32, t.device, (t.n_vars,))
     _check("xe", xe, torch.int32, t.device, (t.n_vars,))
     _check("weights", w, torch.float32, t.device, (t.n_weights,))
+    send_p = _send_ptr("send", send, t.device, t.n_rows[ci])
+    send_e_p = _send_ptr("send_e", send_e, t.device, t.n_rows[ci])
     if t.n_rows[ci] == 0:
-        return
+        return False
     if not t.ptrs or not lt.ptrs:
         raise ValueError("learn tables on %s were not built for the kernel"
                          % t.device)
     lib, p = _kernel_lib("itemgrid_learn"), lt.ptrs
     stream = _stream(t.device)
     xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
-    salt16, salt_w = _learn_salts(epoch, ci)
     _raise_if(lib.nsx_learn_step(
         *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
-        _ptr(xer), p["item_g"], p["item_inc"], t.row0[ci], t.n_rows[ci],
-        t.kmax, seed, salt16, int(hs.learn_non_evidence), stream),
-        "learn step kernel")
+        _ptr(xer), p["item_g"], p["item_inc"], send_p, send_e_p,
+        t.row0[ci], t.n_rows[ci], t.kmax, seed, salt16_of(epoch, ci),
+        int(hs.learn_non_evidence), stream), "learn step kernel")
     LEARN_LAUNCHES += 1
     if lt.n_ch[ci]:
         _raise_if(lib.nsx_learn_reduce(
@@ -913,13 +1088,91 @@ def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
             p["item_inc"], p["chunk_g"], p["chunk_n"], lt.ch0[ci],
             lt.n_ch[ci], stream), "learn reduce kernel")
         LEARN_LAUNCHES += 1
-    if lt.n_wt[ci]:
-        _raise_if(lib.nsx_learn_update(
-            p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"],
-            p["chunk_n"], p["w_fixed"], _ptr(w), lt.wt0[ci], lt.n_wt[ci],
-            int(hs.mean), hs.regularization, hs.step, hs.shrink, hs.l1d,
-            hs.thresh, seed, salt_w, stream), "learn update kernel")
-        LEARN_LAUNCHES += 1
+    return True
+
+
+def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
+                  xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
+                  hs: LearnStep) -> None:
+    """The three CUDA launches of one learn step on the current stream;
+    a launch with no rows, chunks or weights to work on is skipped and
+    not counted."""
+    global LEARN_LAUNCHES
+    if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs) or \
+            not lt.n_wt[ci]:
+        return
+    p = lt.ptrs
+    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_update(
+        p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"],
+        p["chunk_n"], p["w_fixed"], _ptr(w), lt.wt0[ci], lt.n_wt[ci],
+        int(hs.mean), hs.regularization, hs.step, hs.shrink, hs.l1d,
+        hs.thresh, seed, _coin_salt(epoch, ci),
+        _stream(lt.sweep.device)), "learn update kernel")
+    LEARN_LAUNCHES += 1
+
+
+def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
+                        xe: torch.Tensor, w: torch.Tensor, seed: int,
+                        epoch: int, hs: LearnStep, part: torch.Tensor,
+                        send: torch.Tensor | None = None,
+                        send_e: torch.Tensor | None = None) -> None:
+    """A shard's half of one learn step, in place: both chains of step
+    ``ci`` resample (``seed`` is the shard's), ``send`` / ``send_e``
+    receive the rows' values, and ``part`` (2W,) int32 receives the
+    shard's dense per-weight (gradient sum as float32 bits, count),
+    zero for the weights it does not touch. CPU tensors run the plain
+    version; CUDA tensors launch the step, reduce and partial kernels
+    (errors raise). :func:`learn_apply` sums the shards' partials."""
+    W = lt.w_fixed.numel()
+    if x.device.type == "cpu":
+        learn_color_partial_reference(lt, ci, x, xe, w, seed, epoch, hs,
+                                      part, send, send_e)
+        return
+    if x.device.type != "cuda":
+        raise ValueError("learn_color_partial: unsupported device %s"
+                         % x.device)
+    global LEARN_LAUNCHES
+    _check("part", part, torch.int32, lt.sweep.device, (2 * W,))
+    _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs, send, send_e)
+    p = lt.ptrs
+    has_wt = lt.sweep.n_rows[ci] > 0 and lt.n_wt[ci] > 0
+    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_partial(
+        p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"], p["chunk_n"],
+        _ptr(part), _ptr(part[W:]), lt.wt0[ci],
+        lt.n_wt[ci] if has_wt else 0, W, _stream(part.device)),
+        "learn partial kernel")
+    LEARN_LAUNCHES += int(has_wt)
+
+
+def learn_apply(payload: torch.Tensor, goff: int, w_fixed: torch.Tensor,
+                w: torch.Tensor, seed: int, epoch: int, ci: int,
+                hs: LearnStep) -> None:
+    """Sum every shard's partial of step ``ci`` in shard order and apply
+    the update to ``w`` (see :func:`learn_apply_reference`). CPU tensors
+    run the plain version; CUDA tensors launch the apply kernel (errors
+    raise)."""
+    if w.device.type == "cpu":
+        learn_apply_reference(payload, goff, w_fixed, w, seed, epoch, ci,
+                              hs)
+        return
+    if w.device.type != "cuda":
+        raise ValueError("learn_apply: unsupported device %s" % w.device)
+    global LEARN_LAUNCHES
+    W = w.numel()
+    _check("payload", payload, torch.int32, w.device)
+    _check("w_fixed", w_fixed, torch.int8, w.device, (W,))
+    if payload.dim() != 2 or goff + 2 * W > payload.shape[1]:
+        raise ValueError("payload %s holds no partial of %d weights at %d"
+                         % (tuple(payload.shape), W, goff))
+    if W == 0:
+        return
+    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_apply(
+        _ptr(payload), _ptr(w_fixed), _ptr(w), payload.shape[0],
+        payload.shape[1], goff, W, int(hs.mean), hs.regularization,
+        hs.step, hs.shrink, hs.l1d, hs.thresh, seed,
+        _coin_salt(epoch, ci), _stream(w.device)),
+        "learn apply kernel")
+    LEARN_LAUNCHES += 1
 
 
 def learn_color(lt: LearnTables, ci: int, x: torch.Tensor,
@@ -946,7 +1199,7 @@ class ItemGridEngine:
     ``(weights, free chain, clamped chain)``."""
 
     def __init__(self, cg: CompiledGraph, sample_evidence: bool = True,
-                 device="cpu", schedule: Schedule | None = None):
+                 device="cuda", schedule: Schedule | None = None):
         device = torch.device(device)
         if cg.kmax > K_MAX_SUP:
             raise ValueError("cardinality %d > %d" % (cg.kmax, K_MAX_SUP))

@@ -183,8 +183,9 @@ def test_cli_learning_diagnostics(tmp_path, capsys):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, after a learning and an inference run on
-    the CPU (engine 'hbm') and a lattice run: no jax and no numbskull_tpu
-    (the test process has imported both)."""
+    the CPU (engine 'hbm'), a lattice run and the graph-sharded engine's
+    run, run_emulated and learn: no jax and no numbskull_tpu (the test
+    process has imported both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
@@ -200,6 +201,14 @@ def test_port_imports_no_jax():
             "ns.inference(out=False)\n"
             "g = GridGibbsEngine(4, 5, 0.3, device='cpu')\n"
             "g.inference(g.init_state(), seed=1, epochs=3, burn=1)\n"
+            "from numbskull_tpu_torch.ops.itemgrid_mc import "
+            "MultiChipItemGridEngine\n"
+            "import numbskull_tpu_torch.parallel.multihost\n"
+            "mc = MultiChipItemGridEngine(ns.factorGraphs[0].cg, n_shards=2,\n"
+            "                             device='cpu')\n"
+            "mc.run(1, 1, 2)\n"
+            "mc.run_emulated(1, 1, 2)\n"
+            "mc.learn(1, 1, 2, 0.1)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"
