@@ -81,14 +81,33 @@ Phases (each one that fails exits non-zero; nothing is retried):
    in a temporary directory), whose values, counts and learned weights
    must equal the in-process 2-shard run bit for bit.
 
+9. Partitioned (BSP) execution: (a) ``BSPItemGridInference`` on the
+   Ising of phase 3, 4 parts from ``choose_partition`` (as the CLI
+   chooses them), ``values`` and ``messages`` mode, 2 burn-in + 10
+   syncs through the kernels (counted: the has_ext sweep runs in
+   messages mode only) and through the plain versions from the same
+   state, values and tallies bit-equal; ms per sync, its split (part
+   sweeps, messages, exchange) and the device busy share; the has_ext
+   sweep's device time per launch against the same launch without the
+   table. (b) messages-mode learning, kernels against plain bit for bit
+   (weights, both chains), on the coin graph of phase 4 split pairwise
+   (2 burn-in syncs + 3 epochs) and on the 1M Ising with 30 % evidence
+   in 4 parts (2 epochs), with the learning sync's rate and split. (c)
+   The CLI: ``--parts 4 -i 100 -b 10`` on the Ising and ``--parts 2 -l
+   150 -i 100 -b 10`` on the coin graph (``BSPEngine`` over the
+   tensor-op ``GibbsEngine``), outputs checked, ``main()`` split into
+   partition, per-part compile, learning, inference and dump.
+
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
-of kernel and plain version, the bound from this run's shapes at the
+of kernel and plain version (the has_ext forms: per part-epoch on one
+part's tables of the 1M Ising), the bound from this run's shapes at the
 H100's 3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M
 path that kernels #6 and #7 of the TPU package served); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
-script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only.
+script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
+``python3 chip_smoke.py bsp`` phases 1 and 9.
 """
 
 from __future__ import annotations
@@ -129,6 +148,14 @@ EXCHANGE = {"name": "itemgrid_exchange", "route": "cuda",
             "source": "numbskull_tpu_torch/csrc/itemgrid_exchange.cu",
             "replaces": "tests/test_itemgrid_mc.py:112"}
 MC_SHARDS = 4            # phase 8's in-process shard count
+SWEEP_EXT = {"name": "itemgrid_sweep_ext", "route": "cuda",
+             "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
+             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1862"}
+LEARN_EXT = {"name": "itemgrid_learn_ext", "route": "cuda",
+             "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
+             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2351"}
+BSP_PARTS = 4            # phase 9's parts on the 1M Ising
+BSP_RUN = (3, 2, 10)     # phase 9's inference: seed, burn, epochs
 COIN_TRUTH = (0.8, -0.5, 0.4)
 LATTICE_W = 0.3          # bench.py:48 and :62, the lattice cells' weight
 LATTICES = (1024, 2048, 8192)    # bench.py:375, :381; 8192 beyond VMEM
@@ -1446,17 +1473,378 @@ def mc_records(mcr):
     return recs
 
 
+def _bsp_clone(state):
+    """A copy of a BSPItemGridInference's state."""
+    import dataclasses
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)})
+
+
+def _bsp_diff(torch, a, b, names):
+    """(all bit-equal, max abs difference) of the named state fields."""
+    same = all(_bits_equal(torch, getattr(a, n), getattr(b, n))
+               for n in names)
+    err = max(float((getattr(a, n).double() - getattr(b, n).double())
+                    .abs().max()) for n in names)
+    return same, err
+
+
+def _bsp_partition(model, n_parts):
+    """Phase 9's partition, chosen as run_distributed chooses it."""
+    from numbskull_tpu_torch.compile import conflict_edges
+    from numbskull_tpu_torch.parallel.partition import choose_partition
+    w, v, f, fm, _, _ = model
+    t0 = time.perf_counter()
+    part, report = choose_partition(len(v), conflict_edges(v, f, fm),
+                                    n_parts)
+    log("  partition into %d parts: %s, sizes %s, %.2f s" % (
+        n_parts, report["chosen"], [int((part == p).sum())
+                                    for p in range(n_parts)],
+        time.perf_counter() - t0))
+    return part
+
+
+def _kernel_call_ms(torch, fn, name):
+    """Device time per launch of kernels whose name holds ``name`` in a
+    trace of fn(), or None when the trace shows none."""
+    by_kernel = {}
+    device_busy(torch, fn, by_kernel)
+    hits = [(c, us) for k, (c, us) in by_kernel.items() if name in k]
+    calls = sum(c for c, _ in hits)
+    return sum(us for _, us in hits) / 1e3 / calls if calls else None
+
+
+def _split_ms(torch, pieces, n=20):
+    """CUDA-event ms of one call of each piece (name, fn), n calls back
+    to back after one warm-up call."""
+    out = {}
+    for name, fn in pieces:
+        fn()
+        out[name] = _time_epochs(
+            torch, lambda k: [fn() for _ in range(k)], n) / n
+    return out
+
+
+def _bsp_infer_case(torch, model, part, mode, out):
+    """Phase 9 (a), one mode: BSPItemGridInference on the kernels (the
+    main path, counted), then the same run through the plain versions
+    from the same state, bit for bit; then rates."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.parallel.bsp import BSPItemGridInference
+    w, v, f, fm, dm, _ = model
+    t0 = time.perf_counter()
+    eng = BSPItemGridInference(w, v, f, fm, part, mode=mode, domain_mask=dm,
+                               device=DEVICE)
+    log("  %s: %d parts built in %.2f s (compile + tables)%s" % (
+        mode, eng.n_parts, time.perf_counter() - t0,
+        "" if eng.msg_plan is None else "; %d message targets"
+        % eng.msg_plan.n_targets))
+    seed, burn, epochs = BSP_RUN
+    start = _bsp_clone(eng.state)
+    pig.KERNEL_LAUNCHES = pig.EXT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    eng.inference(seed, epochs, burn=burn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (pig.KERNEL_LAUNCHES, pig.EXT_LAUNCHES)
+    kern = _bsp_clone(eng.state)
+    eng.state = _bsp_clone(start)
+    eng.inference(seed, epochs, burn=burn, plain=True)
+    torch.cuda.synchronize()
+    same, err = _bsp_diff(torch, kern, eng.state, ("values", "counts"))
+    steps = sum(1 for e in eng.engines for n in e.tables.n_rows if n > 0)
+    want = ((burn + epochs) * steps,
+            (burn + epochs) * steps if mode == "messages" else 0)
+    mean = float(kern.counts[:, 1].double().mean()) / epochs
+    log("  %s: %d + %d syncs in %.3f s; sweep / ext launches %s (expected "
+        "%s); kernels == plain (values, tallies): %s, max |diff| %g; "
+        "tallies %d, mean marginal %.4f" % (
+            mode, burn, epochs, wall, launches, want, same, err,
+            int(kern.counts.sum()), mean))
+    if not same:
+        fail("BSP %s inference: kernels and plain versions disagree" % mode)
+    if launches != want:
+        fail("BSP %s inference launches %s, expected %s" % (mode, launches,
+                                                            want))
+    if int(kern.counts.sum()) != epochs * len(v) or not 0.4 < mean < 0.6:
+        fail("BSP %s inference tallies or marginals malformed" % mode)
+    out["err"] = max(out.get("err", 0.0), err)
+    if mode == "messages":
+        out["ext_launches"] = out.get("ext_launches", 0) + launches[1]
+
+    # rates: ms per sync (epoch-differenced), its split, the busy share
+    r = out.setdefault(mode, {})
+    r["sync_ms"] = min(epoch_rate(torch, lambda k: eng.inference(1, k),
+                                  len(v), 10, 50)[1] for _ in range(2))
+    ext = eng._messages(eng.state.values)
+    holder = {}
+
+    def sweeps():
+        holder["outs"] = eng._sweep_parts(1, 0, 1, ext)
+
+    pieces = [("sweeps", sweeps),
+              ("exchange", lambda: eng._exchange(holder["outs"], True))]
+    if mode == "messages":
+        pieces.insert(0, ("messages",
+                          lambda: eng._messages(eng.state.values)))
+    r["split"] = _split_ms(torch, pieces)
+    r["busy"] = device_busy(torch, lambda: eng.inference(1, 20))
+    log("  %s: %.4f ms per sync (CUDA events, syncs 10..50); split %s ms; "
+        "device busy share over 20 syncs %s" % (
+            mode, r["sync_ms"], {k: round(x, 4) for k, x in
+                                 r["split"].items()},
+            "not measured" if r["busy"] is None else "%.3f" % r["busy"]))
+    if mode == "messages":
+        # the has_ext form alone on part 0's tables, against the same
+        # launches without the table
+        e0 = eng.engines[0]
+        r["ext_call_ms"] = _kernel_call_ms(
+            torch, lambda: e0.run(1, 0, 20, ext_pot=ext), "sweep_color")
+        r["noext_call_ms"] = _kernel_call_ms(
+            torch, lambda: e0.run(1, 0, 20), "sweep_color")
+        out["sweep_ms"] = min(epoch_rate(
+            torch, lambda k: e0.run(1, 0, k, ext_pot=ext), len(v), 20,
+            120)[1] for _ in range(2))
+        out["sweep_plain_ms"] = epoch_rate(
+            torch, lambda k: e0.run(1, 0, k, ext_pot=ext, plain=True),
+            len(v), 1, 3, tries=1)[1]
+        nb, ops = sweep_epoch_cost(torch, e0.tables)
+        out["sweep_cost"] = (nb + 4 * len(v) * e0.cg.kmax, ops)
+        log("  has_ext sweep on part 0's tables: %.4f ms per part-epoch "
+            "(plain %.2f); device time per launch %s ms with the table, "
+            "%s without" % (out["sweep_ms"], out["sweep_plain_ms"],
+                            r["ext_call_ms"], r["noext_call_ms"]))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _bsp_learn_case(torch, name, model, part, args, out, rates=False):
+    """Phase 9 (b), one graph: messages-mode BSPItemGridInference.learn
+    on the kernels (counted), then through the plain versions from the
+    same state: weights and both chains bit for bit."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    from numbskull_tpu_torch.parallel.bsp import BSPItemGridInference
+    w, v, f, fm, dm, _ = model
+    lp = LearnParams(regularization=2, reg_param=1e-4)
+    seed, burn, epochs, step, decay = args
+    t0 = time.perf_counter()
+    eng = BSPItemGridInference(w, v, f, fm, part, mode="messages",
+                               domain_mask=dm, device=DEVICE)
+    log("  %s: %d parts built in %.2f s" % (name, eng.n_parts,
+                                          time.perf_counter() - t0))
+    start = _bsp_clone(eng.state)
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    pig.EXT_LAUNCHES = pig.EXT_LEARN_LAUNCHES = 0
+    t0 = time.perf_counter()
+    eng.learn(seed, epochs, step, decay, burn=burn, lp=lp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = (pig.KERNEL_LAUNCHES, pig.EXT_LAUNCHES, pig.LEARN_LAUNCHES,
+         pig.EXT_LEARN_LAUNCHES)
+    kern = _bsp_clone(eng.state)
+    eng.state = _bsp_clone(start)
+    eng.learn(seed, epochs, step, decay, burn=burn, lp=lp, plain=True)
+    torch.cuda.synchronize()
+    fields = ("weights", "values", "values_evid")
+    same, err = _bsp_diff(torch, kern, eng.state, fields)
+    steps = sum(1 for e in eng.engines for r in e.tables.n_rows if r > 0)
+    moved = not torch.equal(kern.weights, start.weights)
+    log("  %s: %d burn-in syncs + %d epochs in %.3f s; launches sweep %d "
+        "(ext %d), learn %d (ext step %d); weights %s (from %s); kernels "
+        "== plain (weights, both chains): %s, max |diff| %g" % (
+            name, burn, epochs, wall, n[0], n[1], n[2], n[3],
+            [round(float(x), 6) for x in kern.weights.cpu()],
+            [float(x) for x in start.weights.cpu()], same, err))
+    if not same:
+        fail("BSP learning on %s: kernels and plain versions disagree"
+             % name)
+    if n[0] != burn * steps or n[1] != n[0] or n[3] != epochs * steps or \
+            not moved:
+        fail("BSP learning on %s: launches %s (expected sweep %d, learn "
+             "steps %d, all with ext) or the weights did not move"
+             % (name, n, burn * steps, epochs * steps))
+    out["err_learn"] = max(out.get("err_learn", 0.0), err)
+    out["ext_learn_launches"] = out.get("ext_learn_launches", 0) + n[3]
+    out["ext_launches"] = out.get("ext_launches", 0) + n[1]
+    if not rates:
+        return
+    r = out.setdefault("learn", {})
+    r["sync_ms"] = epoch_rate(
+        torch, lambda k: eng.learn(1, k, step, decay, lp=lp), len(v), 2,
+        6)[1]
+    ext = eng._messages(eng.state.values)
+    ext_e = eng._messages(eng.state.values_evid)
+    holder = {}
+
+    def parts():
+        holder["outs"] = eng._learn_parts(1, 0, step, lp, ext, ext_e)
+
+    r["split"] = _split_ms(torch, [
+        ("messages", lambda: (eng._messages(eng.state.values),
+                              eng._messages(eng.state.values_evid))),
+        ("part learns", parts),
+        ("exchange", lambda: eng._learn_exchange(holder["outs"]))], n=5)
+    r["busy"] = device_busy(torch, lambda: eng.learn(1, 5, step, lp=lp))
+    e0 = eng.engines[0]
+    r["ext_call_ms"] = _kernel_call_ms(
+        torch, lambda: e0.learn(1, 0, 5, step, lp=lp, ext_pot=ext,
+                                ext_pot_evid=ext_e), "learn_step")
+    r["noext_call_ms"] = _kernel_call_ms(
+        torch, lambda: e0.learn(1, 0, 5, step, lp=lp), "learn_step")
+    log("  %s: %.4f ms per learning sync (CUDA events, epochs 2..6); split "
+        "%s ms; device busy share over 5 syncs %s; learn step device time "
+        "per launch %s ms with the tables, %s without" % (
+            name, r["sync_ms"], {k: round(x, 4) for k, x in
+                                 r["split"].items()},
+            "not measured" if r["busy"] is None else "%.3f" % r["busy"],
+            r["ext_call_ms"], r["noext_call_ms"]))
+    out["learn_ms"] = epoch_rate(
+        torch, lambda k: e0.learn(1, 0, k, step, lp=lp, ext_pot=ext,
+                                  ext_pot_evid=ext_e), len(v), 2, 6)[1]
+    out["learn_plain_ms"] = epoch_rate(
+        torch, lambda k: e0.learn(1, 0, k, step, lp=lp, ext_pot=ext,
+                                  ext_pot_evid=ext_e, plain=True), len(v),
+        1, 2, tries=1, warm=False)[1]
+    nb, ops = learn_epoch_cost(torch, e0.learn_tables())
+    out["learn_cost"] = (nb + 8 * len(v) * e0.cg.kmax, ops)
+    log("  has_ext learning on part 0's tables: %.4f ms per part-epoch "
+        "(plain %.2f)" % (out["learn_ms"], out["learn_plain_ms"]))
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _bsp_cli(torch, workdir, out):
+    """Phase 9 (c): the CLI's --parts on the Ising of phase 3 and the coin
+    graph of phase 4 (parallel/bsp.BSPEngine over the tensor-op
+    GibbsEngine)."""
+    import numpy as np
+
+    from numbskull_tpu_torch import dataloading
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.models import coin_model, ising_grid
+    from numbskull_tpu_torch.observability import metrics
+    idir, cdir = (os.path.join(workdir, "bsp_" + n) for n in ("ising",
+                                                              "coin"))
+    w, v, f, fm, _, _ = ising_grid(GRID, GRID, weight=0.25)
+    dataloading.write_factor_graph_files(idir, w, v, f, fm)
+    w, v, f, fm, _, _ = coin_model(COIN_COPIES, *COIN_TRUTH, evidence=True,
+                                   fixed=False, seed=3)
+    dataloading.write_factor_graph_files(cdir, w, v, f, fm)
+    phases = ("partition", "compile", "learning", "inference", "dump")
+    runs = (("ising", idir, ["--parts", str(BSP_PARTS), "-l", "0", "-i",
+                             "100", "-b", "10"]),
+            ("coin", cdir, ["--parts", "2", "-l", "150", "-i", "100", "-b",
+                            "10", "-s", "0.1", "-d", "0.99", "-r", "1e-4"]))
+    for name, src, flags in runs:
+        dst = os.path.join(workdir, "bsp_out_" + name)
+        metrics.reset()
+        t0 = time.perf_counter()
+        ns = cli.main([src, *flags, "-o", dst, "-q", "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        tm = metrics.snapshot()["timings"]
+        split = {p: tm["distributed.%s_s" % p]["total_s"] for p in phases}
+        out["cli_" + name] = dict(split, wall=wall)
+        res = ns.distributed
+        log("  CLI %s: main() %.2f s = %s + load %.2f s; %d parts (%s, %s),"
+            " traffic %s" % (" ".join(flags[:2]), wall, ", ".join(
+                "%s %.3f" % kv for kv in split.items()),
+                wall - sum(split.values()), res["n_parts"],
+                res["partition"], res["mode"], res["traffic"]))
+        paths = [os.path.join(dst, "inference_result.out" + s)
+                 for s in (".text", ".weights.text")]
+        for p in paths:
+            if not os.path.isfile(p):
+                fail("CLI --parts: missing output " + p)
+        rows = np.loadtxt(paths[0], ndmin=2)
+        got = np.loadtxt(paths[1], ndmin=2)[:, 1]
+        if name == "ising":
+            mean = float(rows[:, 2].mean())
+            log("    %d marginal rows, mean marginal %.4f" % (len(rows),
+                                                             mean))
+            if rows.shape != (GRID * GRID, 3) or abs(mean - 0.5) > 0.05:
+                fail("CLI --parts 4: Ising marginals malformed or mean "
+                     "%.4f not within 0.05 of 0.5" % mean)
+        else:
+            log("    learned weights %s (truth %s)" % (
+                np.array2string(got, precision=4), COIN_TRUTH))
+            if rows.shape != (2 * COIN_COPIES, 3) or \
+                    (np.sign(got) != np.sign(COIN_TRUTH)).any():
+                fail("CLI --parts 2: coin outputs malformed or weights %s "
+                     "without the truth's signs" % got)
+
+
+def phase_bsp(torch, card):
+    """Phase 9: partitioned (BSP) execution. (a) BSPItemGridInference on
+    the 1M Ising, 4 parts, values and messages mode; (b) its learning in
+    messages mode on the coin graph split pairwise and on the 1M Ising
+    with 30 % evidence; (c) the CLI's --parts. Returns a dict of what it
+    measured."""
+    import numpy as np
+
+    from numbskull_tpu_torch.models import coin_model, ising_grid
+    log("== phase 9: partitioned (BSP) execution, %s" % card)
+    torch.cuda.empty_cache()
+    out = {}
+    model = ising_grid(GRID, GRID, weight=0.25)
+    log("  (a) BSPItemGridInference, Ising %dx%d, %d parts" % (
+        GRID, GRID, BSP_PARTS))
+    part = _bsp_partition(model, BSP_PARTS)
+    for mode in ("values", "messages"):
+        _bsp_infer_case(torch, model, part, mode, out)
+
+    log("  (b) BSPItemGridInference.learn, messages mode")
+    coin = coin_model(COIN_COPIES, *COIN_TRUTH, evidence=True, fixed=False,
+                      seed=3)
+    pairwise = np.arange(2 * COIN_COPIES) % 2
+    _bsp_learn_case(torch, "coin%dk pairwise" % (2 * COIN_COPIES // 1000),
+                    coin, pairwise, (5, 2, 3, 0.1, 0.99), out)
+    ising_ev = _with_evidence(ising_grid(GRID, GRID, weight=0.25,
+                                         fixed=False), 0.3, 6)
+    # evidence leaves the factors, hence the conflict edges and the
+    # partition chosen from them, as in (a)
+    _bsp_learn_case(torch, "ising1024 ev30", ising_ev, part,
+                    (9, 0, 2, 0.05, 0.99), out, rates=True)
+
+    log("  (c) the CLI's --parts (BSPEngine on the tensor-op GibbsEngine)")
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_bsp_") as work:
+        _bsp_cli(torch, work, out)
+    return out
+
+
+def bsp_records(b):
+    """The kernels-line records of the has_ext forms of kernels #1 and
+    #2: per part-epoch on part 0's tables of the 1M Ising."""
+    recs = [dict(SWEEP_EXT, launches=b["ext_launches"], max_abs_err=b["err"],
+                 ms=b["sweep_ms"], plain_ms=b["sweep_plain_ms"],
+                 cost=b["sweep_cost"], library_ms=None),
+            dict(LEARN_EXT, launches=b["ext_learn_launches"],
+                 max_abs_err=b["err_learn"], ms=b["learn_ms"],
+                 plain_ms=b["learn_plain_ms"], cost=b["learn_cost"],
+                 library_ms=None)]
+    for rec in recs:
+        rec["bound_ms"], rec["bound_by"] = bound(*rec.pop("cost"))
+    return recs
+
+
+def finish(torch, card, records):
+    log(card)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     torch = setup()
     card = card_line()
     phase_device(torch)
     if sys.argv[1:] == ["mc"]:        # phases 1 and 8 only
-        records = mc_records(phase_mc(torch, card))
-        log(card)
-        print(json.dumps({"kernels": records}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        finish(torch, card, mc_records(phase_mc(torch, card)))
+        return
+    if sys.argv[1:] == ["bsp"]:       # phases 1 and 9 only
+        finish(torch, card, bsp_records(phase_bsp(torch, card)))
         return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
@@ -1473,6 +1861,7 @@ def main():
     stencil_launches, lattice = phase_lattice(torch, card)
     hbm = phase_hbm(torch, card)
     mcr = phase_mc(torch, card)
+    bspr = phase_bsp(torch, card)
     sweep = rates[("ising1024", "infer")]
     learn = rates[("coin400k", "learn")]
     grid = lattice[LATTICES[0]]
@@ -1499,12 +1888,8 @@ def main():
                       "ms": hbm[what + "_kernel"][1],
                       "plain_ms": hbm[what + "_plain"][1],
                       "bound_ms": bound(*cost)[0]}
-    records += mc_records(mcr)
-    log(card)
-    print(json.dumps({"kernels": records}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    records += mc_records(mcr) + bsp_records(bspr)
+    finish(torch, card, records)
 
 
 if __name__ == "__main__":

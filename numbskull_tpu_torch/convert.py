@@ -15,6 +15,7 @@ import torch
 from numbskull_tpu_torch.compile import ColorPlan, CompiledGraph
 from numbskull_tpu_torch.ops.gibbs import SamplerState
 from numbskull_tpu_torch.ops.stencil import GridState
+from numbskull_tpu_torch.parallel.bsp import BSPState
 
 
 def compiled_graph_from_reference(fields: dict) -> CompiledGraph:
@@ -50,3 +51,18 @@ def grid_state_from_reference(x, count, device):
         x=torch.as_tensor(np.array(x, dtype=np.int32), device=device),
         count=torch.as_tensor(np.array(count, dtype=np.int32),
                               device=device))
+
+
+def bsp_state_from_reference(values, values_evid, weights, counts,
+                             device) -> BSPState:
+    """The global state of a ``parallel/bsp.BSPItemGridInference`` on
+    ``device`` from a JAX ``BSPItemGridInference``'s ``_values``,
+    ``_values_evid``, ``_weights`` and ``_counts`` (assign it to the
+    port engine's ``state`` to continue the run)."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+    return BSPState(values=t(values, np.int32),
+                    values_evid=t(values_evid, np.int32),
+                    weights=t(weights, np.float32),
+                    counts=t(counts, np.int64))

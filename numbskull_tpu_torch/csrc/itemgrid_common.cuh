@@ -187,6 +187,21 @@ __device__ __forceinline__ void for_k(F&& f) {
   }
 }
 
+// external potentials (the has_ext forms of the TPU kernels): row vid's
+// entries of a (V, kext) float32 table, added to the first min(K, kext)
+// candidates after the row's items and before the draw; a null table adds
+// nothing
+template <int KMAX>
+__device__ __forceinline__ void add_ext(float* pot, const float* ext, int vid,
+                                        int K, int kext) {
+  if (ext == nullptr) return;
+  const float* e = ext + static_cast<int64_t>(vid) * kext;
+  const int ke = K < kext ? K : kext;
+  for_k<KMAX>([&](int k) {
+    if (k < ke) pot[k] = __fadd_rn(pot[k], e[k]);
+  });
+}
+
 // _draw: masked max, sequential exp sum, sequential cumulative count
 template <int KMAX>
 __device__ int draw_cdf(float* pot, int card, int K, float u01) {

@@ -54,6 +54,15 @@
 // (apply_weight below). Bound: W x n_g x 8 B read, W x 4 B written per
 // step, a few microseconds at the CLI's sizes.
 //
+// Partitioned (BSP) learning (parallel/bsp.BSPItemGridInference.learn)
+// needs the TPU learn kernel's has_ext form (itemgrid_pallas.py:2117-2120,
+// :2351-2360): non-null `ext_p` / `ext_e`, (V, kext) float32 tables in
+// variable order, add the incoming boundary messages of the free / clamped
+// chain to pot_p / pot_e for k < min(kmax, kext), after the items and
+// before the two draws. The TPU kernel turns its affine path off under
+// ext; this kernel has only the general arithmetic, so nothing else
+// changes. Null tables: the launch as before.
+//
 // A color that is not independent (--max_colors) reads both chains from
 // snapshots taken before the launch (xr, xer); otherwise xr == x and
 // xer == xe. Draws hash the raw seed (no * 977) with the salts of the TPU
@@ -82,9 +91,12 @@ struct LearnStep {
   int8_t* item_inc;
   int32_t* send;       // packed free-chain values, or null
   int32_t* send_e;     // packed clamped-chain values, or null
+  const float* ext_p;  // (V, kext) free-chain external potentials, or null
+  const float* ext_e;  // (V, kext) clamped-chain external potentials, or null
   int row0, n_rows, kmax;
   uint32_t seed, salt16;
   int lrn_all;         // --learn_non_evidence: every updated row learns
+  int kext;
 };
 
 template <int KMAX>
@@ -120,6 +132,8 @@ __global__ void __launch_bounds__(128)
       }
     });
   }
+  add_ext<KMAX>(pot_p, p.ext_p, vid, K, p.kext);
+  add_ext<KMAX>(pot_e, p.ext_e, vid, K, p.kext);
 
   // the `row` map: i0 = 0, i1 = position in the 1024-position block
   const uint32_t upos = static_cast<uint32_t>(t.row_upos[r]);
@@ -304,16 +318,20 @@ extern "C" int nsx_learn_step(
     const int32_t* arg_card, const int8_t* arg_subst, const float* it_fv,
     const float* weights, int32_t* x, int32_t* xe, const int32_t* xr,
     const int32_t* xer, float* item_g, int8_t* item_inc, int32_t* send,
-    int32_t* send_e, int row0, int n_rows, int kmax, int seed, int salt16,
-    int lrn_all, void* stream) {
+    int32_t* send_e, const float* ext_p, const float* ext_e, int row0,
+    int n_rows, int kmax, int seed, int salt16, int lrn_all, int kext,
+    void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if ((ext_p != nullptr || ext_e != nullptr) && kext < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Tables t{row_vid, row_card, row_upos, row_flags, row_item,
                  it_ftype, it_wid,  it_arity, it_arg,    it_dense,
                  it_d1,    it_d2,   arg_vid,  arg_eq,    arg_card,
                  arg_subst};
   const LearnStep p{weights, it_fv, x, xe, xr, xer, item_g, item_inc,
-                    send, send_e, row0, n_rows, kmax, static_cast<uint32_t>(seed),
-                    static_cast<uint32_t>(salt16), lrn_all};
+                    send, send_e, ext_p, ext_e, row0, n_rows, kmax,
+                    static_cast<uint32_t>(seed), static_cast<uint32_t>(salt16),
+                    lrn_all, kext};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (kmax <= 2) return static_cast<int>(launch_step<2>(t, p, s));

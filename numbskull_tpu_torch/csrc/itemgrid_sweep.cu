@@ -48,6 +48,15 @@
 // send[row - row0]: the packed half of the per-color exchange
 // (itemgrid_exchange.cu unpacks it into the other replicas). With a
 // null `send` the kernel runs as before.
+//
+// Partitioned (BSP) inference (parallel/bsp.BSPItemGridInference) needs
+// the TPU kernel's has_ext form (itemgrid_pallas.py:1840-1845, :1862-1868,
+// :1920-1924): a non-null `ext`, a (V, kext) float32 table in variable
+// order, adds ext[vid, k] to the row's potentials for k < min(kmax, kext)
+// after the items and before the draw, so the boolean draw computes
+// expf((p0 + e0) - (p1 + e1)) as the TPU's _draw2 does. The table adds
+// V x kmax x 4 bytes to a launch's reads (8.4 MB per epoch on a 1M-variable
+// boolean graph). With a null `ext` the kernel runs as before.
 
 #include "itemgrid_common.cuh"
 
@@ -62,9 +71,10 @@ struct Step {
   int32_t* x;
   int32_t* counts;
   int32_t* send;      // packed values after the step, or null
+  const float* ext;   // (V, kext) external potentials, or null
   int row0, n_rows, kmax, map_kind, draw_kind;
   uint32_t seed977, salt16;
-  int tally;
+  int tally, kext;
 };
 
 // the row's uniform under the step's position map
@@ -105,6 +115,7 @@ __global__ void __launch_bounds__(128)
       }
     });
   }
+  add_ext<KMAX>(pot, p.ext, vid, K, p.kext);
 
   const float u01 = uniform01(p, t.row_upos[r]);
   int nv;
@@ -144,17 +155,19 @@ extern "C" int nsx_itemgrid_sweep_color(
     const int32_t* it_arg, const int8_t* it_dense, const int32_t* it_d1,
     const int32_t* it_d2, const int32_t* arg_vid, const int32_t* arg_eq,
     const int32_t* arg_card, const int8_t* arg_subst, const float* weights,
-    const int32_t* xr, int32_t* x, int32_t* counts, int32_t* send, int row0,
-    int n_rows, int kmax, int map_kind,
-    int draw_kind, int seed977, int salt16, int tally, void* stream) {
+    const int32_t* xr, int32_t* x, int32_t* counts, int32_t* send,
+    const float* ext, int row0, int n_rows, int kmax, int map_kind,
+    int draw_kind, int seed977, int salt16, int tally, int kext,
+    void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (ext != nullptr && kext < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Tables t{row_vid, row_card, row_upos, row_flags, row_item,
                  it_ftype, it_wid,  it_arity, it_arg,    it_dense,
                  it_d1,    it_d2,   arg_vid,  arg_eq,    arg_card,
                  arg_subst};
-  const Step p{weights, xr, x, counts, send, row0, n_rows, kmax, map_kind, draw_kind,
-               static_cast<uint32_t>(seed977), static_cast<uint32_t>(salt16),
-               tally};
+  const Step p{weights, xr, x, counts, send, ext, row0, n_rows, kmax, map_kind,
+               draw_kind, static_cast<uint32_t>(seed977),
+               static_cast<uint32_t>(salt16), tally, kext};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (kmax <= 2) return static_cast<int>(launch<2>(t, p, s));

@@ -7,9 +7,11 @@ numbskull/numbskull.py:18-149 argument tables, :359-391 output files),
 with learning (``-l N``) running through the learn kernels and inference
 through the fused sweep kernel of ``ops/itemgrid``, on the device named
 by ``--device``. Learning runs first; inference continues from the
-learned weights and the learned free chain. Flags whose machinery is not
-ported yet raise NotImplementedError naming the ROADMAP.md port-queue
-item that will serve them; none is ignored.
+learned weights and the learned free chain. ``--parts N`` runs the
+whole job partitioned (:func:`run_distributed`, ``parallel/bsp.
+BSPEngine``). Flags whose machinery is not ported yet raise
+NotImplementedError naming the ROADMAP.md port-queue item that will
+serve them; none is ignored.
 """
 
 from __future__ import annotations
@@ -290,8 +292,6 @@ def check_slice(ns: "NumbSkull") -> None:
     """Raise for every option this port does not serve yet."""
     if ns.checkpoint:
         raise _not_ported("--checkpoint", "M2, checkpoint.py/resilience.py")
-    if ns.parts and ns.parts > 1:
-        raise _not_ported("--parts > 1", "M4, parallel/*")
     if ns.dburl:
         raise _not_ported("-u/--dburl", "M3, dbsource.py")
     _check_engine(ns.engine)
@@ -303,7 +303,8 @@ KERNEL_ENGINES = ("auto", "itemgrid", "hbm")
 
 def _check_engine(engine: str) -> None:
     if engine == "xla":
-        raise _not_ported("--engine xla", "M1b, the XLA GibbsEngine")
+        raise _not_ported("--engine xla", "M2, the XLA engine's exact "
+                          "resume")
     if engine not in KERNEL_ENGINES:
         raise ValueError("unknown engine %r" % (engine,))
 
@@ -647,6 +648,99 @@ class NumbSkull:
                 self.output_dir, "inference_result.out.weights.text"))
 
 
+def _distributed_arrays(ns: "NumbSkull"):
+    """Raw full-graph arrays from the graph files for the distributed
+    runner. The DB source and its partition metadata are not ported (M3;
+    ``check_slice`` refuses ``-u``)."""
+    _, weight, variable, factor, fmap, _, domain_mask = \
+        dataloading.load_factor_graph_files(
+            ns.directory, ns.metafile, ns.weightfile, ns.variablefile,
+            ns.factorfile, ns.domainfile)
+    return weight, variable, factor, fmap, domain_mask
+
+
+def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
+    """One-command partitioned learning + inference.
+
+    The reference's whole cluster flow (load, partition by cost,
+    distributed learning with per-epoch weight-delta reduction at the
+    master, distributed inference, text dumps, wall times returned) as a
+    single call (reference salt/src/numbskull_master.py:547-584; scheme
+    selection by cost numbskull_master.py:371-408), every part on
+    ``ns.device``. Partition candidates: connected-components packing and
+    balanced region growing under one cost model; the cheapest wins.
+    Without DB metadata ``--dist_mode auto`` is ``values``. Wall times
+    go to the metrics ``distributed.<phase>_s`` (partition, compile,
+    learning, inference, dump)."""
+    from numbskull_tpu_torch.compile import conflict_edges
+    from numbskull_tpu_torch.parallel.bsp import BSPEngine
+    from numbskull_tpu_torch.parallel.partition import choose_partition
+
+    n_parts = max(int(ns.parts), 1)
+    weight, variable, factor, fmap, domain_mask = _distributed_arrays(ns)
+    edges = conflict_edges(variable, factor, fmap)
+
+    with Timer() as t_part:
+        part, report = choose_partition(len(variable), edges, n_parts)
+    # the DB's partition keys and its UFO flags (which let auto pick
+    # messages) come with the DB source (M3); files carry neither
+    mode = "values" if ns.dist_mode == "auto" else ns.dist_mode
+
+    with Timer() as t_compile:
+        eng = BSPEngine(weight, variable, factor, fmap, part, mode=mode,
+                        domain_mask=domain_mask, max_colors=ns.max_colors,
+                        seed=ns.seed, device=ns.device)
+    lp = LearnParams(regularization=ns.regularization,
+                     reg_param=ns.reg_param, truncation=ns.truncation,
+                     learn_non_evidence=ns.learn_non_evidence,
+                     grad_agg=ns.grad_agg)
+    gen = torch.Generator().manual_seed(int(ns.seed))
+    states = eng.init_states()
+
+    def sync():
+        if ns.device.type == "cuda":
+            torch.cuda.synchronize(ns.device)
+
+    with Timer() as t_learn:
+        if ns.n_learning_epoch:
+            states = eng.learn(states, gen,
+                               epochs=ns.n_learning_epoch,
+                               stepsize=ns.stepsize, decay=ns.decay,
+                               burn=ns.burn_in, lp=lp)
+        sync()
+    with Timer() as t_inf:
+        states = eng.inference(states, gen,
+                               epochs=ns.n_inference_epoch,
+                               burn=ns.burn_in,
+                               sample_evidence=ns.sample_evidence)
+        sync()
+    with Timer() as t_dump:
+        counts = eng.marginals(states, 1)
+        weights_out = eng.weights(states)
+        if out:
+            os.makedirs(ns.output_dir, exist_ok=True)
+            dump_weight_text(weights_out, os.path.join(
+                ns.output_dir, "inference_result.out.weights.text"))
+            dump_marginal_text(eng.engines[0].cg, counts,
+                               ns.n_inference_epoch, os.path.join(
+                                   ns.output_dir,
+                                   "inference_result.out.text"))
+    result = {
+        "n_parts": n_parts, "mode": mode, "partition": report["chosen"],
+        "partition_s": t_part.interval, "compile_s": t_compile.interval,
+        "learning_s": t_learn.interval, "inference_s": t_inf.interval,
+        "dump_s": t_dump.interval, "traffic": eng.sync_traffic(),
+    }
+    for phase in ("partition", "compile", "learning", "inference", "dump"):
+        metrics.observe("distributed.%s_s" % phase, result[phase + "_s"])
+    if not ns.quiet:
+        print("DISTRIBUTED %d parts (%s, %s): learning %.3f s, "
+              "inference %.3f s" %
+              (n_parts, result["partition"], mode,
+               t_learn.interval, t_inf.interval))
+    return result
+
+
 def load(argv=None) -> NumbSkull:
     """Parse CLI args, build a NumbSkull, load the graph directory."""
     if argv is None:
@@ -662,14 +756,19 @@ def load(argv=None) -> NumbSkull:
         parser.add_argument(*arg, **opts)
     args = parser.parse_args(argv)
     ns = NumbSkull(**vars(args))
+    if ns.parts and ns.parts > 1:
+        return ns      # run_distributed loads its own raw arrays
     ns.loadFGFromFile()
     return ns
 
 
 def main(argv=None):
     ns = load(argv)
-    ns.learning()
-    ns.inference()
+    if ns.parts and ns.parts > 1:
+        ns.distributed = run_distributed(ns)
+    else:
+        ns.learning()
+        ns.inference()
     if ns.metrics_out:
         metrics.dump(ns.metrics_out)
     return ns

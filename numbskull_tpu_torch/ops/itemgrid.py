@@ -67,10 +67,9 @@ import numpy as np
 import torch
 
 from numbskull_tpu_torch.compile import CompiledGraph
-from numbskull_tpu_torch.ops.factor_eval import (eval_factors,
-                                                 present_types_of)
+from numbskull_tpu_torch.ops.factor_eval import present_types_of
 from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
-                                          plan_tensors)
+                                          eval_items_at, plan_tensors)
 from numbskull_tpu_torch.types import EV_EVIDENCE, EV_QUERY
 
 COLOR_MAX = 256      # salt stride is COLOR_MAX + 1: at most 256 colors
@@ -97,6 +96,12 @@ RED_CHUNK = 1024                # items per chunk of the gradient sum
 KERNEL_LAUNCHES = 0
 #: launches of the CUDA learn kernels (step, reduce, update)
 LEARN_LAUNCHES = 0
+#: sweep launches that carry an external potential table (the has_ext
+#: form; counted in KERNEL_LAUNCHES too)
+EXT_LAUNCHES = 0
+#: learn step launches that carry external potential tables (counted in
+#: LEARN_LAUNCHES too)
+EXT_LEARN_LAUNCHES = 0
 
 
 def _i32(v: int) -> int:
@@ -498,15 +503,17 @@ def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
                          counts: torch.Tensor, weights: torch.Tensor,
                          seed977: int, epoch: int, tally: bool,
                          salt_xor: int = 0, salt16: int | None = None,
-                         send: torch.Tensor | None = None) -> None:
+                         send: torch.Tensor | None = None,
+                         ext: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of one kernel launch: resample step ``ci``
     of the sweep in place in ``x`` (V,) and, when ``tally``, add the
     drawn values into ``counts`` (V, K). Every value is read before any
     is written. ``salt16`` replaces ``salt16_of(epoch, ci)`` (a shard's
     stream); ``send`` receives the rows' values after the step, in row
-    order (the packed half of the exchange)."""
+    order (the packed half of the exchange); ``ext`` (V, K') adds
+    external potentials before the draw (:func:`_padded_potentials`)."""
     lo, n = t.row0[ci], t.n_rows[ci]
-    pot = _padded_potentials(t, ci, x, weights)
+    pot = _padded_potentials(t, ci, x, weights, ext)
     vid = t.row_vid[lo:lo + n].to(torch.int64)
     card = t.row_card[lo:lo + n]
     u01 = block_uniforms(seed977, salt16_of(epoch, ci) if salt16 is None
@@ -531,10 +538,16 @@ def color_step_reference(t: SweepTables, ci: int, x: torch.Tensor,
 
 
 def _padded_potentials(t: SweepTables, ci: int, x: torch.Tensor,
-                       weights: torch.Tensor) -> torch.Tensor:
-    """Step ``ci``'s potentials (n_rows, t.kmax) from values ``x``."""
+                       weights: torch.Tensor,
+                       ext: torch.Tensor | None = None) -> torch.Tensor:
+    """Step ``ci``'s potentials (n_rows, t.kmax) from values ``x``; with
+    ``ext`` (V, K'), each row's ``ext[vid, k]`` is added after its items
+    (itemgrid_pallas.py:1862-1868) for k below the color's kmax: the
+    columns above it are beyond every row's cardinality, which each draw
+    masks, so the kernel's adding them up to the global kmax draws the
+    same values."""
     pot = color_potentials(t.plan_tensors(ci), t.plans[ci].kmax,
-                           t.present[ci], x, weights)[:t.n_rows[ci]]
+                           t.present[ci], x, weights, ext)[:t.n_rows[ci]]
     if pot.shape[1] < t.kmax:
         pot = torch.nn.functional.pad(pot, (0, t.kmax - pot.shape[1]))
     return pot
@@ -555,11 +568,11 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
         lib = load_library(name)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "itemgrid_sweep":
-            sigs = {"nsx_itemgrid_sweep_color": [P] * 21 + [I] * 8 + [P]}
+            sigs = {"nsx_itemgrid_sweep_color": [P] * 22 + [I] * 9 + [P]}
         elif name == "itemgrid_exchange":
             sigs = {"nsx_exchange_unpack": [P] * 5 + [I] * 6 + [P]}
         else:
-            sigs = {"nsx_learn_step": [P] * 26 + [I] * 6 + [P],
+            sigs = {"nsx_learn_step": [P] * 28 + [I] * 7 + [P],
                     "nsx_learn_reduce": [P] * 7 + [I] * 2 + [P],
                     "nsx_learn_update": [P] * 7 + [I] * 4 + [F] * 4 +
                     [I] * 2 + [P],
@@ -629,20 +642,35 @@ def _send_ptr(name: str, send, device, n: int):
     return _ptr(send)
 
 
+def _ext_ptr(name: str, ext, device, n_vars: int):
+    """The pointer and width of an external potential table (V, K')
+    float32, or (NULL, 0) when there is none."""
+    if ext is None:
+        return ctypes.c_void_p(None), 0
+    _check(name, ext, torch.float32, device)
+    if ext.dim() != 2 or ext.shape[0] != n_vars or ext.shape[1] < 1:
+        raise ValueError("%s has shape %s, expected (%d, K >= 1)"
+                         % (name, tuple(ext.shape), n_vars))
+    return _ptr(ext), int(ext.shape[1])
+
+
 def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
                   counts: torch.Tensor, weights: torch.Tensor,
                   seed977: int, salt16: int, tally: bool,
-                  send: torch.Tensor | None = None) -> None:
+                  send: torch.Tensor | None = None,
+                  ext: torch.Tensor | None = None) -> None:
     """Launch the CUDA kernel for step ``ci`` on the current stream. A
     step with no rows launches nothing and counts nothing; a
     conflicting step reads from a snapshot of ``x``. With ``send``, the
     kernel also writes each row's value after the step to
-    ``send[row - row0]``."""
-    global KERNEL_LAUNCHES
+    ``send[row - row0]``; with ``ext`` (V, K') it adds each row's
+    external potentials before the draw."""
+    global KERNEL_LAUNCHES, EXT_LAUNCHES
     _check("x", x, torch.int32, t.device, (t.n_vars,))
     _check("counts", counts, torch.int32, t.device, (t.n_vars, t.kmax))
     _check("weights", weights, torch.float32, t.device, (t.n_weights,))
     send_p = _send_ptr("send", send, t.device, t.n_rows[ci])
+    ext_p, kext = _ext_ptr("ext", ext, t.device, t.n_vars)
     if t.n_rows[ci] == 0:
         return
     if not t.ptrs:
@@ -651,33 +679,36 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
     xr = x.clone() if t.conflict[ci] else x
     fn = _kernel_lib().nsx_itemgrid_sweep_color
     rc = fn(*t.ptrs, _ptr(weights), _ptr(xr), _ptr(x), _ptr(counts),
-            send_p, t.row0[ci], t.n_rows[ci], t.kmax, t.map_codes[ci],
-            t.draw_codes[ci], seed977, salt16, int(bool(tally)),
-            _stream(t.device))
+            send_p, ext_p, t.row0[ci], t.n_rows[ci], t.kmax,
+            t.map_codes[ci], t.draw_codes[ci], seed977, salt16,
+            int(bool(tally)), kext, _stream(t.device))
     _raise_if(rc, "itemgrid sweep kernel")
     KERNEL_LAUNCHES += 1
+    EXT_LAUNCHES += ext is not None
 
 
 def sweep_color(t: SweepTables, ci: int, x: torch.Tensor,
                 counts: torch.Tensor, weights: torch.Tensor, seed977: int,
                 epoch: int, tally: bool, salt_xor: int = 0,
                 salt16: int | None = None,
-                send: torch.Tensor | None = None) -> None:
+                send: torch.Tensor | None = None,
+                ext: torch.Tensor | None = None) -> None:
     """One (epoch, color) step, in place. CPU tensors run the plain
     version; CUDA tensors launch the kernel (errors raise).
     ``salt_xor`` (learning's burn-in) must leave the low 16 bits of the
     salt alone, where it commutes with adding the block index.
-    ``salt16`` replaces ``salt16_of(epoch, ci)`` and ``send`` receives
-    the rows' values after the step (see :func:`color_step_reference`)."""
+    ``salt16`` replaces ``salt16_of(epoch, ci)``, ``send`` receives
+    the rows' values after the step and ``ext`` (V, K') adds external
+    potentials before the draw (see :func:`color_step_reference`)."""
     if salt_xor & 0xFFFF:
         raise ValueError("salt_xor 0x%x touches the block bits" % salt_xor)
     if x.device.type == "cpu":
         color_step_reference(t, ci, x, counts, weights, seed977, epoch,
-                             tally, salt_xor, salt16, send)
+                             tally, salt_xor, salt16, send, ext)
     elif x.device.type == "cuda":
         s16 = salt16_of(epoch, ci) if salt16 is None else salt16
         _launch_sweep(t, ci, x, counts, weights, seed977,
-                      _i32(s16 ^ salt_xor), tally, send)
+                      _i32(s16 ^ salt_xor), tally, send, ext)
     else:
         raise ValueError("sweep_color: unsupported device %s" % x.device)
 
@@ -848,8 +879,9 @@ def _coin_salt(epoch: int, ci: int) -> int:
 
 def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
                                xe: torch.Tensor, w: torch.Tensor,
-                               seed: int, epoch: int,
-                               hs: LearnStep) -> None:
+                               seed: int, epoch: int, hs: LearnStep,
+                               ext_p: torch.Tensor | None = None,
+                               ext_e: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of one learn step (the three kernel
     launches): both chains of step ``ci`` resample in place in ``x``
     (free) and ``xe`` (clamped), then the weights ``w`` take one SGD
@@ -861,10 +893,13 @@ def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
     An item counts when its row carries the gradient and it is dense or
     a drawn value hits its d1/d2 slot; its gradient is (eval at the free
     value - eval at the clamped value) x featureValue. Per weight the
-    gradients sum in the kernels' order (:func:`_weight_sums`)."""
+    gradients sum in the kernels' order (:func:`_weight_sums`).
+    ``ext_p`` / ``ext_e`` (V, K') add external potentials to the free /
+    clamped chain's potentials before the draws."""
     if lt.sweep.n_rows[ci] == 0:
         return
-    gsum, nsum = learn_rows_reference(lt, ci, x, xe, w, seed, epoch, hs)
+    gsum, nsum = learn_rows_reference(lt, ci, x, xe, w, seed, epoch, hs,
+                                      ext_p=ext_p, ext_e=ext_e)
     a, m = lt.wt0[ci], lt.n_wt[ci]
     _update_weights_reference(w, lt.wt_wid[a:a + m].to(torch.int64), gsum,
                               nsum, lt.w_fixed, seed,
@@ -875,17 +910,21 @@ def learn_rows_reference(lt: LearnTables, ci: int, x: torch.Tensor,
                          xe: torch.Tensor, w: torch.Tensor, seed: int,
                          epoch: int, hs: LearnStep,
                          send: torch.Tensor | None = None,
-                         send_e: torch.Tensor | None = None):
+                         send_e: torch.Tensor | None = None,
+                         ext_p: torch.Tensor | None = None,
+                         ext_e: torch.Tensor | None = None):
     """Both chains' half of :func:`learn_color_step_reference` (the step
     and reduce kernels): resample step ``ci`` in place and return, per
     weight of the step (``wt_wid`` order), the gradient sum and count.
     ``send`` / ``send_e`` receive the rows' values of each chain after
-    the step, in row order."""
+    the step, in row order; ``ext_p`` / ``ext_e`` are added to the free
+    / clamped chain's potentials after the items
+    (itemgrid_pallas.py:2351-2360)."""
     t = lt.sweep
     lo, n = t.row0[ci], t.n_rows[ci]
     pd = t.plan_tensors(ci)
-    pot_p = _padded_potentials(t, ci, x, w)
-    pot_e = _padded_potentials(t, ci, xe, w)
+    pot_p = _padded_potentials(t, ci, x, w, ext_p)
+    pot_e = _padded_potentials(t, ci, xe, w, ext_e)
     vid = t.row_vid[lo:lo + n].to(torch.int64)
     card = t.row_card[lo:lo + n]
     upos = t.row_upos[lo:lo + n]
@@ -903,8 +942,8 @@ def learn_rows_reference(lt: LearnTables, ci: int, x: torch.Tensor,
 
     row = pd["it_row"]
     p_it, e_it = p_val[row], e_val[row]
-    ev_p = _eval_items_at(pd, t.present[ci], x, p_it)
-    ev_e = _eval_items_at(pd, t.present[ci], xe, e_it)
+    ev_p = eval_items_at(pd, t.present[ci], x, p_it)
+    ev_e = eval_items_at(pd, t.present[ci], xe, e_it)
     hit = (pd["it_d1"] == e_it) | (pd["it_d1"] == p_it) | \
         (pd["it_d2"] == e_it) | (pd["it_d2"] == p_it)
     inc = lrn[row] & (pd["it_dense"] | hit)
@@ -951,7 +990,9 @@ def learn_color_partial_reference(lt: LearnTables, ci: int,
                                   w: torch.Tensor, seed: int, epoch: int,
                                   hs: LearnStep, part: torch.Tensor,
                                   send: torch.Tensor | None = None,
-                                  send_e: torch.Tensor | None = None) -> None:
+                                  send_e: torch.Tensor | None = None,
+                                  ext_p: torch.Tensor | None = None,
+                                  ext_e: torch.Tensor | None = None) -> None:
     """Plain version of :func:`learn_color_partial` (the step, reduce
     and partial kernels): the shard's per-weight sums of step ``ci`` as
     dense vectors, ``part`` (2W,) int32 = (gradient sums as float32
@@ -961,7 +1002,7 @@ def learn_color_partial_reference(lt: LearnTables, ci: int,
     if lt.sweep.n_rows[ci] == 0:
         return
     gsum, nsum = learn_rows_reference(lt, ci, x, xe, w, seed, epoch, hs,
-                                      send, send_e)
+                                      send, send_e, ext_p, ext_e)
     a, m = lt.wt0[ci], lt.n_wt[ci]
     wid = lt.wt_wid[a:a + m].to(torch.int64)
     part[:W].view(torch.float32)[wid] = gsum
@@ -987,18 +1028,6 @@ def learn_apply_reference(payload: torch.Tensor, goff: int,
     _update_weights_reference(
         w, torch.arange(W, device=w.device), g, n, w_fixed, seed,
         _coin_salt(epoch, ci), hs)
-
-
-def _eval_items_at(pd: dict, present, chain: torch.Tensor,
-                   value_it: torch.Tensor) -> torch.Tensor:
-    """Each item's factor with its row's variable at ``value_it`` and
-    its other arguments read from ``chain``."""
-    vals = chain[pd["it_args_vid"]].to(torch.int64)
-    sub = torch.where(pd["it_subst"], value_it.to(torch.int64)[:, None],
-                      vals)
-    return eval_factors(pd["it_ftype"], sub, pd["it_args_eq"],
-                        pd["it_args_valid"], pd["it_args_card"],
-                        pd["it_arity"], present)
 
 
 def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
@@ -1056,18 +1085,26 @@ def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
 def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                        xe: torch.Tensor, w: torch.Tensor, seed: int,
                        epoch: int, hs: LearnStep, send=None,
-                       send_e=None) -> bool:
+                       send_e=None, ext_p=None, ext_e=None) -> bool:
     """The step and reduce launches of one learn step on the current
     stream; returns False, launching nothing, for a step with no rows.
     A launch with no chunks to work on is skipped and not counted. A
-    conflicting step reads from snapshots of the chains."""
-    global LEARN_LAUNCHES
+    conflicting step reads from snapshots of the chains. ``ext_p`` /
+    ``ext_e`` (V, K'), of one width, add external potentials to the
+    free / clamped chain before the draws."""
+    global LEARN_LAUNCHES, EXT_LEARN_LAUNCHES
     t = lt.sweep
     _check("x", x, torch.int32, t.device, (t.n_vars,))
     _check("xe", xe, torch.int32, t.device, (t.n_vars,))
     _check("weights", w, torch.float32, t.device, (t.n_weights,))
     send_p = _send_ptr("send", send, t.device, t.n_rows[ci])
     send_e_p = _send_ptr("send_e", send_e, t.device, t.n_rows[ci])
+    ext_pp, kext = _ext_ptr("ext_p", ext_p, t.device, t.n_vars)
+    ext_ep, kext_e = _ext_ptr("ext_e", ext_e, t.device, t.n_vars)
+    if ext_p is not None and ext_e is not None and kext != kext_e:
+        raise ValueError("ext_p and ext_e differ in width: %d, %d"
+                         % (kext, kext_e))
+    kext = kext or kext_e
     if t.n_rows[ci] == 0:
         return False
     if not t.ptrs or not lt.ptrs:
@@ -1078,10 +1115,12 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
     xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
     _raise_if(lib.nsx_learn_step(
         *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
-        _ptr(xer), p["item_g"], p["item_inc"], send_p, send_e_p,
-        t.row0[ci], t.n_rows[ci], t.kmax, seed, salt16_of(epoch, ci),
-        int(hs.learn_non_evidence), stream), "learn step kernel")
+        _ptr(xer), p["item_g"], p["item_inc"], send_p, send_e_p, ext_pp,
+        ext_ep, t.row0[ci], t.n_rows[ci], t.kmax, seed,
+        salt16_of(epoch, ci), int(hs.learn_non_evidence), kext, stream),
+        "learn step kernel")
     LEARN_LAUNCHES += 1
+    EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
     if lt.n_ch[ci]:
         _raise_if(lib.nsx_learn_reduce(
             p["red_item"], p["ch_start"], p["ch_len"], p["item_g"],
@@ -1093,12 +1132,13 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
 
 def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
                   xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
-                  hs: LearnStep) -> None:
+                  hs: LearnStep, ext_p=None, ext_e=None) -> None:
     """The three CUDA launches of one learn step on the current stream;
     a launch with no rows, chunks or weights to work on is skipped and
     not counted."""
     global LEARN_LAUNCHES
-    if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs) or \
+    if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs,
+                              ext_p=ext_p, ext_e=ext_e) or \
             not lt.n_wt[ci]:
         return
     p = lt.ptrs
@@ -1115,7 +1155,9 @@ def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
                         xe: torch.Tensor, w: torch.Tensor, seed: int,
                         epoch: int, hs: LearnStep, part: torch.Tensor,
                         send: torch.Tensor | None = None,
-                        send_e: torch.Tensor | None = None) -> None:
+                        send_e: torch.Tensor | None = None,
+                        ext_p: torch.Tensor | None = None,
+                        ext_e: torch.Tensor | None = None) -> None:
     """A shard's half of one learn step, in place: both chains of step
     ``ci`` resample (``seed`` is the shard's), ``send`` / ``send_e``
     receive the rows' values, and ``part`` (2W,) int32 receives the
@@ -1126,14 +1168,15 @@ def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
     W = lt.w_fixed.numel()
     if x.device.type == "cpu":
         learn_color_partial_reference(lt, ci, x, xe, w, seed, epoch, hs,
-                                      part, send, send_e)
+                                      part, send, send_e, ext_p, ext_e)
         return
     if x.device.type != "cuda":
         raise ValueError("learn_color_partial: unsupported device %s"
                          % x.device)
     global LEARN_LAUNCHES
     _check("part", part, torch.int32, lt.sweep.device, (2 * W,))
-    _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs, send, send_e)
+    _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs, send, send_e,
+                       ext_p, ext_e)
     p = lt.ptrs
     has_wt = lt.sweep.n_rows[ci] > 0 and lt.n_wt[ci] > 0
     _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_partial(
@@ -1177,13 +1220,17 @@ def learn_apply(payload: torch.Tensor, goff: int, w_fixed: torch.Tensor,
 
 def learn_color(lt: LearnTables, ci: int, x: torch.Tensor,
                 xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
-                hs: LearnStep) -> None:
+                hs: LearnStep, ext_p: torch.Tensor | None = None,
+                ext_e: torch.Tensor | None = None) -> None:
     """One (epoch, color) learn step, in place. CPU tensors run the
-    plain version; CUDA tensors launch the kernels (errors raise)."""
+    plain version; CUDA tensors launch the kernels (errors raise).
+    ``ext_p`` / ``ext_e`` (V, K') add external potentials to the free /
+    clamped chain before the draws."""
     if x.device.type == "cpu":
-        learn_color_step_reference(lt, ci, x, xe, w, seed, epoch, hs)
+        learn_color_step_reference(lt, ci, x, xe, w, seed, epoch, hs,
+                                   ext_p, ext_e)
     elif x.device.type == "cuda":
-        _launch_learn(lt, ci, x, xe, w, seed, epoch, hs)
+        _launch_learn(lt, ci, x, xe, w, seed, epoch, hs, ext_p, ext_e)
     else:
         raise ValueError("learn_color: unsupported device %s" % x.device)
 
@@ -1196,7 +1243,11 @@ class ItemGridEngine:
     ``(values (V,), counts (V, K))`` in original variable order, as
     tensors on ``device``. There is no cap on the epoch count (tallies
     are int32). ``learn`` runs the dual-chain SGD and returns
-    ``(weights, free chain, clamped chain)``."""
+    ``(weights, free chain, clamped chain)``. Both take external
+    per-(variable, value) potentials (``ext_pot``, and ``ext_pot_evid``
+    for learning's clamped chain): the incoming boundary messages of
+    partitioned execution (``parallel/bsp``), which launch the kernels'
+    has_ext forms."""
 
     def __init__(self, cg: CompiledGraph, sample_evidence: bool = True,
                  device="cuda", schedule: Schedule | None = None):
@@ -1215,18 +1266,39 @@ class ItemGridEngine:
         v = default if value is None else value
         return torch.as_tensor(v, dtype=dtype, device=self.device).clone()
 
+    def _ext(self, ext):
+        """An external potential table (V, K'), numpy or tensor, as a
+        float32 tensor on the engine's device (not copied when it is
+        one already), or None. K' may differ from kmax: columns beyond
+        kmax are ignored and missing columns add nothing
+        (itemgrid_pallas.py:3105-3107)."""
+        if ext is None:
+            return None
+        e = torch.as_tensor(ext, dtype=torch.float32, device=self.device)
+        if e.dim() != 2 or e.shape[0] != self.cg.n_vars or e.shape[1] < 1:
+            raise ValueError("external potentials of shape %s, expected "
+                             "(%d, K >= 1)" % (tuple(e.shape),
+                                               self.cg.n_vars))
+        return e.contiguous()
+
     def run(self, seed: int, burn: int, epochs: int, weight_value=None,
-            x0=None):
+            x0=None, ext_pot=None, plain: bool = False):
+        """``ext_pot`` (V, K'): external potentials added to every
+        variable's conditional before each draw. ``plain=True`` runs the
+        plain version on the engine's device (how ``chip_smoke.py``
+        holds the kernel to it on the card)."""
+        step = color_step_reference if plain else sweep_color
         cg, dev = self.cg, self.device
         w = self._tensor(weight_value, cg.weight_init, torch.float32)
         x = self._tensor(x0, cg.var_init, torch.int32)
+        ext = self._ext(ext_pot)
         counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
                              device=dev)
         s977 = seed977_of(seed)
         for epoch in range(burn + epochs):
             for ci in range(self.tables.n_steps):
-                sweep_color(self.tables, ci, x, counts, w, s977, epoch,
-                            epoch >= burn)
+                step(self.tables, ci, x, counts, w, s977, epoch,
+                     epoch >= burn, ext=ext)
         return x, counts
 
     def learn_tables(self) -> LearnTables:
@@ -1237,12 +1309,18 @@ class ItemGridEngine:
 
     def learn(self, seed: int, burn: int, epochs: int, stepsize: float,
               decay: float = 1.0, lp: LearnParams | None = None,
-              weight_value=None, x0=None, xe0=None):
+              weight_value=None, x0=None, xe0=None, ext_pot=None,
+              ext_pot_evid=None, plain: bool = False):
         """Dual-chain SGD (PallasItemGridEngine.learn): ``burn`` sweeps
         of the free chain, then ``epochs`` learning epochs; returns
         ``(w (W,), x (V,), xe (V,))`` tensors on the engine's device.
         The engine must be built with ``sample_evidence=True``, so that
-        the free chain resamples evidence too."""
+        the free chain resamples evidence too. ``ext_pot`` (V, K') adds
+        external potentials to the free chain (burn-in included) and
+        ``ext_pot_evid`` to the clamped chain; without
+        ``ext_pot_evid`` the clamped chain takes ``ext_pot``, as
+        ``GibbsEngine`` does (numbskull_tpu/ops/gibbs.py:451-453).
+        ``plain=True`` runs the plain versions on the engine's device."""
         if not self.sample_evidence:
             raise ValueError("learning needs an engine built with "
                              "sample_evidence=True")
@@ -1254,17 +1332,27 @@ class ItemGridEngine:
         w = self._tensor(weight_value, cg.weight_init, torch.float32)
         x = self._tensor(x0, cg.var_init, torch.int32)
         xe = self._tensor(xe0, cg.var_init, torch.int32)
+        ext_p = self._ext(ext_pot)
+        ext_e = self._ext(ext_pot_evid)
+        if ext_e is None:
+            ext_e = ext_p
+        elif ext_p is not None and ext_p.shape[1] != ext_e.shape[1]:
+            raise ValueError("ext_pot and ext_pot_evid differ in width: "
+                             "%d, %d" % (ext_p.shape[1], ext_e.shape[1]))
         lt = self.learn_tables()
         seed = _i32(seed)
         if burn > 0:
             counts = torch.zeros((cg.n_vars, cg.kmax), dtype=torch.int32,
                                  device=self.device)
+            sweep = color_step_reference if plain else sweep_color
             for b in range(burn):
                 for ci in range(lt.sweep.n_steps):
-                    sweep_color(lt.sweep, ci, x, counts, w, seed, b, False,
-                                BURN_SALT_XOR)
+                    sweep(lt.sweep, ci, x, counts, w, seed, b, False,
+                          BURN_SALT_XOR, ext=ext_p)
+        learn_step = learn_color_step_reference if plain else learn_color
         for i in range(epochs):
             hs = learn_step_of(lp, stepsize, decay, i)
             for ci in range(lt.sweep.n_steps):
-                learn_color(lt, ci, x, xe, w, seed, i + LEARN_EPOCH0, hs)
+                learn_step(lt, ci, x, xe, w, seed, i + LEARN_EPOCH0, hs,
+                           ext_p, ext_e)
         return w, x, xe

@@ -86,7 +86,7 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint", "ck.npz"], ["--parts", "2"],
+    ["--checkpoint", "ck.npz"], ["--parts", "2", "-u", "sqlite:///g.db"],
     ["-u", "sqlite:///g.db"], ["--engine", "xla"],
     ["--engine", "hbm", "--checkpoint", "ck.npz"]])
 def test_cli_unported_flags_raise(tmp_path, flags):
@@ -183,9 +183,9 @@ def test_cli_learning_diagnostics(tmp_path, capsys):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, after a learning and an inference run on
-    the CPU (engine 'hbm'), a lattice run and the graph-sharded engine's
-    run, run_emulated and learn: no jax and no numbskull_tpu (the test
-    process has imported both)."""
+    the CPU (engine 'hbm'), a lattice run, the graph-sharded engine's
+    run, run_emulated and learn, and both partitioned engines: no jax and
+    no numbskull_tpu (the test process has imported both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
@@ -209,6 +209,16 @@ def test_port_imports_no_jax():
             "mc.run(1, 1, 2)\n"
             "mc.run_emulated(1, 1, 2)\n"
             "mc.learn(1, 1, 2, 0.1)\n"
+            "import numpy as np, torch\n"
+            "from numbskull_tpu_torch.parallel import bsp, partition\n"
+            "m = coin_model(4)\n"
+            "part = np.arange(8) % 2\n"
+            "b = bsp.BSPItemGridInference(*m[:4], part, mode='messages',\n"
+            "                             device='cpu')\n"
+            "b.learn(1, 1, 0.1)\n"
+            "b.inference(1, 2)\n"
+            "e = bsp.BSPEngine(*m[:4], part, device='cpu')\n"
+            "e.inference(e.init_states(), torch.Generator(), 2)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"
