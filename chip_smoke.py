@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (each one that fails exits non-zero; nothing is retried):
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
-   and the build (``make -C native``, then nvcc of the sweep, learn and
-   lattice kernels, all three at once).
+   and the build (``make -C native``, then nvcc of the sweep, learn,
+   exchange, lattice and gather kernels, all five at once).
 2. Kernels against their plain versions on the card.
    Sweep: for coin, Ising 64x64, LF card 3, Potts card 20, 64 and 128,
    and grouped voting at degree 50 (arity 51), 5 burn-in plus 20
@@ -97,17 +97,35 @@ Phases (each one that fails exits non-zero; nothing is retried):
    150 -i 100 -b 10`` on the coin graph (``BSPEngine`` over the
    tensor-op ``GibbsEngine``), outputs checked, ``main()`` split into
    partition, per-part compile, learning, inference and dump.
+10. Graphs the kernels refuse, the gather kernels, the experiment
+   drivers: (a) the CLI (``--engine itemgrid --device cuda``) on a 4x4
+   Potts graph of cardinality 130 (``-l 20 -i 200 -b 10``, 30 %
+   evidence) and on ``voting_model(400, 1, 300)`` (301 colors, ``-i
+   10``): both files written, one fallback counted with its warning,
+   the tensor-op engine's tensors on the card, no sweep or learn kernel
+   launched. (b) ``gather_sum`` and ``shifted_sum`` (TPU kernels #10 and
+   #11) against their plain versions bit for bit in every TPU mode at
+   the TPU scripts' shapes, and at the sweep kernel's sizes: R =
+   1,048,576 outputs of 59 gathers from a 4 MB x (A) and a 256 MB x (B),
+   and span-8 shifts of a 256 MB window, with kernel, plain and
+   ``embedding_bag`` times and the bound; the time at 2k iterations
+   must be 1.8-2.2x the time at k (a hoisted loop fails). (c) The seven
+   drivers of ``numbskull_tpu_torch/experiments`` at a smoke size, their
+   TSVs checked (columns, ``ok``, ``engine``): the main path of both
+   gather kernels.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
 of kernel and plain version (the has_ext forms: per part-epoch on one
-part's tables of the 1M Ising), the bound from this run's shapes at the
-H100's 3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M
-path that kernels #6 and #7 of the TPU package served); the last line is
+part's tables of the 1M Ising; the gathers: per call at shape A and at
+the span-8 shape), the bound from this run's shapes at the H100's
+3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M path that
+kernels #6 and #7 of the TPU package served); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
 script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
-``python3 chip_smoke.py bsp`` phases 1 and 9.
+``python3 chip_smoke.py bsp`` phases 1 and 9, ``python3 chip_smoke.py
+gather`` phases 1 and 10.
 """
 
 from __future__ import annotations
@@ -154,6 +172,14 @@ SWEEP_EXT = {"name": "itemgrid_sweep_ext", "route": "cuda",
 LEARN_EXT = {"name": "itemgrid_learn_ext", "route": "cuda",
              "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
              "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2351"}
+GATHER = {"name": "gather_sum", "route": "cuda",
+          "source": "numbskull_tpu_torch/csrc/gather_bench.cu",
+          "replaces": "experiments/micro_gather.py:39"}
+SHIFTED = {"name": "shifted_sum", "route": "cuda",
+           "source": "numbskull_tpu_torch/csrc/gather_bench.cu",
+           "replaces": "experiments/micro_gather2.py:34"}
+VOTE_EPOCHS = 10         # phase 10's 301-color graph: 301 tensor-op
+#                          color steps per epoch
 BSP_PARTS = 4            # phase 9's parts on the 1M Ising
 BSP_RUN = (3, 2, 10)     # phase 9's inference: seed, burn, epochs
 COIN_TRUTH = (0.8, -0.5, 0.4)
@@ -168,8 +194,6 @@ STENCIL_FIXTURES = ((8, 8, 0.4, 0.0, 0, 6), (33, 17, 0.4, 0.0, 2, 6),
                     (19, 24, 0.3, 0.7, 5, 5), (1, 1, 0.4, 0.3, 3, 9),
                     (70000, 3, 0.4, 0.1, 1, 2))
 HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
-H100_BYTES_PER_S = 3.35e12      # HBM3 peak (data sheet)
-H100_F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 
 
 def fail(msg: str):
@@ -215,7 +239,8 @@ def phase_device(torch):
     if make.returncode != 0:
         fail("make -C native failed:\n" + make.stdout + make.stderr)
     log("native helpers built in %.2f s" % (time.perf_counter() - t0))
-    from numbskull_tpu_torch.ops import _build, itemgrid, stencil_kernel
+    from numbskull_tpu_torch.ops import (_build, gather, itemgrid,
+                                         stencil_kernel)
     t0 = time.perf_counter()
     errors = {}
     loaders = {"itemgrid_sweep": lambda: itemgrid._kernel_lib(),
@@ -223,7 +248,8 @@ def phase_device(torch):
                    "itemgrid_learn"),
                "itemgrid_exchange": lambda: itemgrid._kernel_lib(
                    "itemgrid_exchange"),
-               "stencil_gibbs": stencil_kernel._kernel_lib}
+               "stencil_gibbs": stencil_kernel._kernel_lib,
+               "gather_bench": gather._kernel_lib}
 
     def build(name):
         try:
@@ -698,14 +724,8 @@ def phase_learn_main_path(torch, workdir):
 
 def _time_epochs(torch, fn, epochs):
     """CUDA-event time (ms) of fn(epochs)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    fn(epochs)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
+    from numbskull_tpu_torch.benchutil import call_ms
+    return call_ms(lambda: fn(epochs), DEVICE)
 
 
 def _plain_run(torch, eng, seed, epochs):
@@ -772,9 +792,8 @@ def rate(torch, eng, plain, lo, hi, lp=None):
 def bound(nbytes, ops):
     """(ms, "bytes" or "operations"): the least time the card could take
     to move ``nbytes`` and do ``ops`` float32 operations."""
-    t_b = nbytes / H100_BYTES_PER_S * 1e3
-    t_o = ops / H100_F32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    from numbskull_tpu_torch.experiments.common import bound_ms
+    return bound_ms(nbytes, ops)
 
 
 def _gathered(torch, t, ci):
@@ -1828,6 +1847,248 @@ def bsp_records(b):
     return recs
 
 
+def _f1_graphs(workdir):
+    """Phase 10 (a)'s graphs as DeepDive files: a 4x4 Potts graph of
+    cardinality 130 with a learnable coupling and 30 % evidence, and
+    voting_model(400, 1, 300) (301 colors)."""
+    import numpy as np
+
+    from numbskull_tpu_torch import dataloading
+    from numbskull_tpu_torch.models import potts_grid, voting_model
+    pdir, vdir = (os.path.join(workdir, n) for n in ("potts130",
+                                                     "voting301"))
+    w, v, f, fm, _, _ = potts_grid(4, 4, card=130, weight=0.3, fixed=False)
+    rng = np.random.default_rng(0)
+    v["isEvidence"] = (rng.random(16) < 0.3).astype(np.int8)
+    v["initialValue"] = rng.integers(0, 130, 16)
+    dataloading.write_factor_graph_files(pdir, w, v, f, fm)
+    w, v, f, fm, _, _ = voting_model(400, 1, 300)
+    dataloading.write_factor_graph_files(vdir, w, v, f, fm)
+    return (("potts130", pdir, ["-l", "20", "-i", "200", "-b", "10"],
+             "cardinality 130 > 128", 16 * 130),
+            ("voting301", vdir, ["-i", str(VOTE_EPOCHS)],
+             "301 colors > 256", 400))
+
+
+def _gather_f1(torch, workdir):
+    """Phase 10 (a): the CLI on two graphs the kernels refuse, on the
+    card."""
+    import warnings
+
+    import numpy as np
+
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import GibbsEngine
+    for name, src, flags, reason, n_rows in _f1_graphs(workdir):
+        dst = os.path.join(workdir, "out_" + name)
+        metrics.reset()
+        launched = (pig.KERNEL_LAUNCHES, pig.LEARN_LAUNCHES)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ns = cli.main([src, *flags, "-o", dst, "-q", "--device", DEVICE,
+                           "--engine", "itemgrid"])
+        wall = time.perf_counter() - t0
+        fg = ns.getFactorGraph()
+        eng = fg.engine(True)
+        said = [str(w.message) for w in caught
+                if "unavailable for this graph" in str(w.message)]
+        fallbacks = metrics.snapshot()["counters"].get("engine.fallbacks")
+        paths = [os.path.join(dst, "inference_result.out" + s)
+                 for s in (".text", ".weights.text")]
+        if not all(os.path.isfile(p) for p in paths):
+            fail("F1 %s: missing output files" % name)
+        rows = np.loadtxt(paths[0], ndmin=2)
+        weights = np.loadtxt(paths[1], ndmin=2)[:, 1]
+        log("  (a) CLI %s %s --engine itemgrid: main() %.2f s, engine %s "
+            "on %s, fallbacks %s, warning %r; %d marginal rows, mean %.4f, "
+            "weights %s" % (name, " ".join(flags), wall, type(eng).__name__,
+                            eng.device, fallbacks, said[0][:90] if said
+                            else None, len(rows), rows[:, 2].mean(),
+                            np.array2string(weights, precision=4)))
+        if not isinstance(eng, GibbsEngine) or eng.device.type != "cuda" \
+                or fg.state.count.device.type != "cuda":
+            fail("F1 %s: not on the tensor-op engine on the card" % name)
+        if fallbacks != 1 or len(said) != 1 or reason not in said[0]:
+            fail("F1 %s: fallback not counted or warned once (%s, %s)"
+                 % (name, fallbacks, said))
+        if (pig.KERNEL_LAUNCHES, pig.LEARN_LAUNCHES) != launched:
+            fail("F1 %s: a sweep or learn kernel launched" % name)
+        if rows.shape != (n_rows, 3) or not np.isfinite(rows).all() or \
+                not ((rows[:, 2] >= 0) & (rows[:, 2] <= 1)).all():
+            fail("F1 %s: marginals malformed" % name)
+        if name == "potts130" and weights[0] == 0.3:
+            fail("F1 potts130: learning left the coupling at 0.3")
+        del ns, fg, eng
+
+
+def _row(row) -> dict:
+    from numbskull_tpu_torch.experiments.micro_gather import HEADER
+    return dict(zip(HEADER, row))
+
+
+def _gather_compare(torch):
+    """Phase 10 (b): both gather kernels against their plain versions at
+    the TPU scripts' shapes and at the sweep kernel's sizes, and the
+    iters scaling. Returns {row name: row dict} of the sizes, and the
+    largest difference of each kernel."""
+    from numbskull_tpu_torch.benchutil import median_ms
+    from numbskull_tpu_torch.experiments import micro_gather as mg
+    from numbskull_tpu_torch.experiments import micro_gather2 as mg2
+    from numbskull_tpu_torch.ops import gather as G
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    rows = [_row(mg.run_mode(m, trw, it, ng, 8, dev, timed=False))
+            for trw, it, ng in mg.VALIDATE for m in mg.MODES]
+    rows += [_row(mg.run_mode(m, trw, it, ng, 8, dev, timed=False))
+             for m, trw, it, ng in mg.TIMING]
+    rows += [_row(mg2.run_mode(m, trw, it, ng, 64, dev, timed=False))
+             for trw, it, ng in mg2.VALIDATE + mg2.TIMING
+             for m in mg2.MODES]
+    bad = [(r["mode"], r["trw"], r["ng"], r["iters"]) for r in rows
+           if not r["ok"]]
+    log("  (b) every TPU mode at the TPU scripts' shapes: %d of %d rows "
+        "bit-equal to the plain version and the numpy formula (%.1f s)"
+        % (len(rows) - len(bad), len(rows), time.perf_counter() - t0))
+    if bad:
+        fail("gather kernels differ from their plain versions: %s" % bad)
+    err = {"gather_sum": 0.0, "shifted_sum": 0.0}
+    for r in rows:
+        form = r["gpu_form"].split()[0]
+        err[form] = max(err[form], float(r["max_abs_err"]))
+
+    x, off, shift = mg.tpu_data(16, 16, 64)
+    xt = torch.as_tensor(x, device=dev)
+    offt = torch.as_tensor(off, device=dev)
+    sh = torch.as_tensor(shift[:16], device=dev)
+    k = 1000
+    for label, fn in (
+            ("gather_sum", lambda it: G.gather_sum(xt, offt, it, False)),
+            ("shifted_sum span 8", lambda it: G.shifted_sum(
+                xt, sh, 1024, 8, it, False))):
+        t_k = median_ms(lambda: fn(k), dev)[0]
+        t_2k = median_ms(lambda: fn(2 * k), dev)[0]
+        log("    iters scaling, %s at trw 16, ng 16: %.4f ms at %d, %.4f "
+            "ms at %d: x%.3f" % (label, t_k, k, t_2k, 2 * k, t_2k / t_k))
+        if not 1.8 <= t_2k / t_k <= 2.2:
+            fail("%s: %d iterations take %.3fx the time of %d (want "
+                 "1.8-2.2x): the iters loop does not run" % (
+                     label, 2 * k, t_2k / t_k, k))
+
+    sizes = {}
+    for name, nx in mg.SWEEP_X:
+        sizes[name] = _row(mg.sweep_gather_row(name, nx, mg.SWEEP_R,
+                                               mg.SWEEP_NG, dev))
+    sizes["sweep_span8"] = _row(mg2.sweep_shifted_row(
+        "sweep_span8", mg2.SWEEP_NX, mg2.SWEEP_R, mg2.SWEEP_NG, mg2.SPAN,
+        dev))
+    for name, r in sizes.items():
+        form = r["gpu_form"].split()[0]
+        err[form] = max(err[form], float(r["max_abs_err"]))
+        log("    %-11s %s, R %s, ng %s, x %s B: kernel %s ms (spread %s), "
+            "plain %s, embedding_bag %s, bound %s (%s; %s of it), sector "
+            "bound %s; equal %s" % (
+                name, r["gpu_form"], r["R"], r["ng"], r["x_bytes"], r["ms"],
+                r["spread_ms"], r["plain_ms"], r["library_ms"],
+                r["bound_ms"], r["bound_by"], r["bound_share"],
+                r["sector_bound_ms"], r["ok"]))
+        if not r["ok"]:
+            fail("%s: kernel, plain version and embedding_bag differ"
+                 % name)
+        torch.cuda.empty_cache()
+    return sizes, err
+
+
+def _smoke_drivers(torch, workdir):
+    """Phase 10 (c): the seven drivers at a smoke size, their TSVs
+    checked. The gather kernels' launch counts are set to 0 just before
+    and read just after."""
+    from numbskull_tpu_torch.experiments import (
+        common, degree_sweep, engine_tradeoff, hbm_scale, micro_gather,
+        micro_gather2, micro_gather_xla, profile_itemgrid)
+    from numbskull_tpu_torch.ops import gather as G
+    runs = (
+        ("micro_gather", lambda p: micro_gather.run(
+            p, DEVICE, timing=(("f32_row", 16, 200, 16),
+                               ("roll", 16, 200, 16)),
+            sweep_r=1 << 16, sweep_x=(("sweep_A", 1 << 20),
+                                      ("sweep_B", 1 << 24)))),
+        ("micro_gather2", lambda p: micro_gather2.run(
+            p, DEVICE, timing=((16, 200, 16),), sweep_r=1 << 16,
+            sweep_nx=1 << 24)),
+        ("micro_gather_xla", lambda p: micro_gather_xla.run(
+            p, 65536, 65536, 10, DEVICE)),
+        ("degree_sweep", lambda p: degree_sweep.run(
+            p, 12600, (1, 50), DEVICE, points=((4, 40), (2, 10)))),
+        ("hbm_scale", lambda p: hbm_scale.run(p, ((160, 512),), DEVICE)),
+        ("engine_tradeoff", lambda p: engine_tradeoff.run(
+            p, DEVICE, scale=0.05, epochs=8)),
+        ("profile_itemgrid", lambda p: profile_itemgrid.run(
+            p, 256, 20, DEVICE, scale=0.05)))
+    G.GATHER_LAUNCHES = G.SHIFTED_LAUNCHES = 0
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        path = os.path.join(workdir, name + ".tsv")
+        fn(path)
+        first, header, rows = common.read_tsv(path)
+        log("  (c) %-16s %d rows in %.1f s; %s" % (
+            name, len(rows), time.perf_counter() - t0, first))
+        if not first.startswith("# card: ") or not rows or \
+                any(len(r) != len(header) for r in rows):
+            fail("driver %s: malformed TSV" % name)
+        if "ok" in header and not all(r["ok"] == "True" for r in rows):
+            fail("driver %s: a row is not ok" % name)
+        if "engine" in header and name == "degree_sweep" and \
+                [r["engine"] for r in rows] != ["itemgrid", "itemgrid"]:
+            fail("driver degree_sweep: engines %s"
+                 % [r["engine"] for r in rows])
+        if name == "engine_tradeoff" and any(
+                r["itemgrid_ups"] == "fallback" for r in rows):
+            fail("driver engine_tradeoff: a kernel engine fell back")
+        if name == "profile_itemgrid" and not any(
+                "itemgrid" in r["kernel"] or "sweep" in r["kernel"]
+                for r in rows):
+            fail("driver profile_itemgrid: no sweep kernel in the trace")
+    launches = (G.GATHER_LAUNCHES, G.SHIFTED_LAUNCHES)
+    log("  (c) gather kernels launched by the drivers: gather_sum %d, "
+        "shifted_sum %d" % launches)
+    if not all(launches):
+        fail("a gather kernel never launched on the drivers' path")
+    return launches
+
+
+def phase_gather(torch, card):
+    """Phase 10; returns what the kernels line needs."""
+    log("== phase 10: graphs the kernels refuse, the gather kernels, the "
+        "experiment drivers, %s" % card)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_gather_") as work:
+        _gather_f1(torch, work)
+        sizes, err = _gather_compare(torch)
+        launches = _smoke_drivers(torch, work)
+    log("  phase 10 took %.1f s" % (time.perf_counter() - t0))
+    return {"sizes": sizes, "err": err, "launches": launches}
+
+
+def gather_records(g):
+    """The kernels-line records of TPU kernels #10 and #11: per call at
+    shape A (gather_sum) and at the span-8 shape (shifted_sum)."""
+    recs = []
+    for base, size, n in ((GATHER, "sweep_A", 0),
+                          (SHIFTED, "sweep_span8", 1)):
+        r = g["sizes"][size]
+        recs.append(dict(base, launches=g["launches"][n],
+                         max_abs_err=g["err"][base["name"]],
+                         ms=float(r["ms"]), plain_ms=float(r["plain_ms"]),
+                         bound_ms=float(r["bound_ms"]),
+                         bound_by=r["bound_by"],
+                         library_ms=float(r["library_ms"])))
+    return recs
+
+
 def finish(torch, card, records):
     log(card)
     print(json.dumps({"kernels": records}))
@@ -1846,6 +2107,9 @@ def main():
     if sys.argv[1:] == ["bsp"]:       # phases 1 and 9 only
         finish(torch, card, bsp_records(phase_bsp(torch, card)))
         return
+    if sys.argv[1:] == ["gather"]:    # phases 1 and 10 only
+        finish(torch, card, gather_records(phase_gather(torch, card)))
+        return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
     worst_s = phase_stencil_compare(torch)
@@ -1862,6 +2126,7 @@ def main():
     hbm = phase_hbm(torch, card)
     mcr = phase_mc(torch, card)
     bspr = phase_bsp(torch, card)
+    gatherr = phase_gather(torch, card)
     sweep = rates[("ising1024", "infer")]
     learn = rates[("coin400k", "learn")]
     grid = lattice[LATTICES[0]]
@@ -1888,7 +2153,8 @@ def main():
                       "ms": hbm[what + "_kernel"][1],
                       "plain_ms": hbm[what + "_plain"][1],
                       "bound_ms": bound(*cost)[0]}
-    records += mc_records(mcr) + bsp_records(bspr)
+    records += mc_records(mcr) + bsp_records(bspr) + \
+        gather_records(gatherr)
     finish(torch, card, records)
 
 

@@ -6,9 +6,12 @@ same argument table and the same two output files (reference:
 numbskull/numbskull.py:18-149 argument tables, :359-391 output files),
 with learning (``-l N``) running through the learn kernels and inference
 through the fused sweep kernel of ``ops/itemgrid``, on the device named
-by ``--device``. Learning runs first; inference continues from the
-learned weights and the learned free chain. ``--parts N`` runs the
-whole job partitioned (:func:`run_distributed`, ``parallel/bsp.
+by ``--device``. A graph outside the kernels' envelope
+(``ops/itemgrid.EnvelopeError``) runs on the tensor-op
+``ops/gibbs.GibbsEngine`` on the same device instead, as the JAX CLI
+falls back to its XLA engine. Learning runs first; inference continues
+from the learned weights and the learned free chain. ``--parts N`` runs
+the whole job partitioned (:func:`run_distributed`, ``parallel/bsp.
 BSPEngine``). Flags whose machinery is not ported yet raise
 NotImplementedError naming the ROADMAP.md port-queue item that will
 serve them; none is ignored.
@@ -19,6 +22,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -27,8 +31,9 @@ from numbskull_tpu_torch import dataloading
 from numbskull_tpu_torch import types as T
 from numbskull_tpu_torch.compile import compile_graph
 from numbskull_tpu_torch.observability import metrics
-from numbskull_tpu_torch.ops.gibbs import LearnParams, init_state
-from numbskull_tpu_torch.ops.itemgrid import ItemGridEngine
+from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams, init_state
+from numbskull_tpu_torch.ops.itemgrid import EnvelopeError, ItemGridEngine
+from numbskull_tpu_torch.ops.sample import make_generator
 from numbskull_tpu_torch.timer import Timer
 
 # Declarative argument tables shared by the CLI and the class: those of
@@ -111,8 +116,10 @@ arguments = [
          "help": "compute engine: 'auto', 'itemgrid' and 'hbm' run the "
                  "fused sweep and learn kernels, which keep every graph "
                  "in device memory (the TPU package's 'hbm' engine for "
-                 "graphs beyond its VMEM cap is the same kernels here); "
-                 "'xla' is not ported yet"}),
+                 "graphs beyond its VMEM cap is the same kernels here), "
+                 "and fall back to the tensor-op engine for graphs the "
+                 "kernels refuse (a warning names the reason under "
+                 "'itemgrid' and 'hbm'); 'xla' is not ported yet"}),
     (("--checkpoint",),
         {"metavar": "CHECKPOINT_FILE", "dest": "checkpoint", "default": "",
          "type": str,
@@ -316,8 +323,9 @@ class FactorGraph:
     Role-equivalent of the reference FactorGraph
     (numbskull/factorgraph.py:27-229). ``engine`` is the JAX package's
     argument: 'auto', 'itemgrid' and 'hbm' all run ItemGridEngine (the
-    port's kernels hold any graph in device memory); each graph adds one
-    to the metrics counter ``engine.requested.<engine>``."""
+    port's kernels hold any graph in device memory), or GibbsEngine for
+    a graph outside the kernels' envelope (:meth:`engine`); each graph
+    adds one to the metrics counter ``engine.requested.<engine>``."""
 
     def __init__(self, cg, fid: int, seed: int = 0, device="cuda",
                  engine: str = "auto"):
@@ -327,25 +335,49 @@ class FactorGraph:
         self.fid = fid
         self.seed = int(seed)
         self.device = resolve_device(device)
+        self.engine_mode = engine
         self.state = init_state(cg, self.device)
         self.inference_epochs_done = 0
         self.inference_total_time = 0.0
         self.learning_total_time = 0.0
         self._last_learn_s = 0.0
         self._calls = 0
-        self._engines = {}       # sample_evidence flag -> ItemGridEngine
+        self._engines = {}       # sample_evidence flag -> engine
+        self._fallback = None    # the GibbsEngine, once the kernels refused
 
     def _next_seed(self) -> int:
-        """Kernel seed of the next run: SeedSequence([seed, fid, call])."""
+        """Seed of the next run: SeedSequence([seed, fid, call])."""
         ss = np.random.SeedSequence([self.seed, self.fid, self._calls])
         self._calls += 1
         return int(ss.generate_state(1, np.uint32)[0] & 0x7FFFFFFF)
 
-    def engine(self, sample_evidence: bool) -> ItemGridEngine:
+    def _generator(self) -> torch.Generator:
+        """The GibbsEngine's generator for the next run, on the graph's
+        device, seeded from :meth:`_next_seed`."""
+        return make_generator(self._next_seed(), self.device)
+
+    def engine(self, sample_evidence: bool):
+        """The ItemGridEngine for ``sample_evidence``; for a graph outside
+        the kernels' envelope (EnvelopeError, and nothing else), the
+        tensor-op GibbsEngine on the same device. Each refusal adds one
+        to the metrics counter ``engine.fallbacks`` and, under engine
+        'itemgrid' or 'hbm', warns with the reason
+        (numbskull_tpu/numbskull.py:283-328)."""
         key = bool(sample_evidence)
         if key not in self._engines:
-            self._engines[key] = ItemGridEngine(
-                self.cg, sample_evidence=key, device=self.device)
+            try:
+                self._engines[key] = ItemGridEngine(
+                    self.cg, sample_evidence=key, device=self.device)
+            except EnvelopeError as err:
+                if self.engine_mode in ("itemgrid", "hbm"):
+                    warnings.warn(
+                        "--engine %s unavailable for this graph, falling "
+                        "back to the tensor-op engine (ops/gibbs."
+                        "GibbsEngine): %s" % (self.engine_mode, err))
+                metrics.add("engine.fallbacks")
+                if self._fallback is None:
+                    self._fallback = GibbsEngine(self.cg, device=self.device)
+                self._engines[key] = self._fallback
         return self._engines[key]
 
     def inference(self, burnin_epochs: int, epochs: int,
@@ -366,12 +398,17 @@ class FactorGraph:
             with metrics.time("inference.engine_build_s"):
                 eng = self.engine(sample_evidence)
             with metrics.time("inference.sweep_s"):
-                vals, counts = eng.run(
-                    self._next_seed(), burnin_epochs, epochs,
-                    weight_value=self.state.weight_value,
-                    x0=self.state.var_value)
-                self.state.var_value = vals
-                self.state.count += counts
+                if isinstance(eng, GibbsEngine):
+                    self.state = eng.inference(
+                        self.state, self._generator(), epochs,
+                        burn=burnin_epochs, sample_evidence=sample_evidence)
+                else:
+                    vals, counts = eng.run(
+                        self._next_seed(), burnin_epochs, epochs,
+                        weight_value=self.state.weight_value,
+                        x0=self.state.var_value)
+                    self.state.var_value = vals
+                    self.state.count += counts
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         metrics.observe("inference.run_s", t.interval)
@@ -413,15 +450,22 @@ class FactorGraph:
         with Timer() as t:
             with metrics.time("learning.engine_build_s"):
                 eng = self.engine(True)
-                eng.learn_tables()
+                if isinstance(eng, ItemGridEngine):
+                    eng.learn_tables()
             with metrics.time("learning.sweep_s"):
-                w, x, xe = eng.learn(
-                    self._next_seed(), burnin_epochs, epochs, stepsize,
-                    decay, lp, weight_value=self.state.weight_value,
-                    x0=self.state.var_value, xe0=self.state.var_value_evid)
-                self.state.weight_value = w
-                self.state.var_value = x
-                self.state.var_value_evid = xe
+                if isinstance(eng, GibbsEngine):
+                    self.state = eng.learn(
+                        self.state, self._generator(), epochs, stepsize,
+                        decay, burn=burnin_epochs, lp=lp)
+                else:
+                    w, x, xe = eng.learn(
+                        self._next_seed(), burnin_epochs, epochs, stepsize,
+                        decay, lp, weight_value=self.state.weight_value,
+                        x0=self.state.var_value,
+                        xe0=self.state.var_value_evid)
+                    self.state.weight_value = w
+                    self.state.var_value = x
+                    self.state.var_value_evid = xe
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         metrics.observe("learning.run_s", t.interval)
@@ -659,14 +703,27 @@ def _distributed_arrays(ns: "NumbSkull"):
     return weight, variable, factor, fmap, domain_mask
 
 
-def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
+def part_devices(device: torch.device) -> list:
+    """The devices ``--parts`` spreads its parts over: every visible card
+    when ``device`` is a CUDA device and more than one is visible (the
+    JAX CLI hands BSPEngine ``jax.devices()``,
+    numbskull_tpu/numbskull.py:838-842), else ``device`` alone."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [device]
+
+
+def run_distributed(ns: "NumbSkull", out: bool = True,
+                    devices=None) -> dict:
     """One-command partitioned learning + inference.
 
     The reference's whole cluster flow (load, partition by cost,
     distributed learning with per-epoch weight-delta reduction at the
     master, distributed inference, text dumps, wall times returned) as a
     single call (reference salt/src/numbskull_master.py:547-584; scheme
-    selection by cost numbskull_master.py:371-408), every part on
+    selection by cost numbskull_master.py:371-408). Part p runs on
+    ``devices[p % len(devices)]``, by default :func:`part_devices` of
     ``ns.device``. Partition candidates: connected-components packing and
     balanced region growing under one cost model; the cheapest wins.
     Without DB metadata ``--dist_mode auto`` is ``values``. Wall times
@@ -676,6 +733,8 @@ def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
     from numbskull_tpu_torch.parallel.bsp import BSPEngine
     from numbskull_tpu_torch.parallel.partition import choose_partition
 
+    devices = part_devices(ns.device) if devices is None else \
+        [torch.device(d) for d in devices]
     n_parts = max(int(ns.parts), 1)
     weight, variable, factor, fmap, domain_mask = _distributed_arrays(ns)
     edges = conflict_edges(variable, factor, fmap)
@@ -689,7 +748,7 @@ def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
     with Timer() as t_compile:
         eng = BSPEngine(weight, variable, factor, fmap, part, mode=mode,
                         domain_mask=domain_mask, max_colors=ns.max_colors,
-                        seed=ns.seed, device=ns.device)
+                        seed=ns.seed, devices=devices)
     lp = LearnParams(regularization=ns.regularization,
                      reg_param=ns.reg_param, truncation=ns.truncation,
                      learn_non_evidence=ns.learn_non_evidence,
@@ -698,8 +757,9 @@ def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
     states = eng.init_states()
 
     def sync():
-        if ns.device.type == "cuda":
-            torch.cuda.synchronize(ns.device)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     with Timer() as t_learn:
         if ns.n_learning_epoch:
@@ -727,6 +787,7 @@ def run_distributed(ns: "NumbSkull", out: bool = True) -> dict:
                                    "inference_result.out.text"))
     result = {
         "n_parts": n_parts, "mode": mode, "partition": report["chosen"],
+        "devices": [str(d) for d in eng.devices],
         "partition_s": t_part.interval, "compile_s": t_compile.interval,
         "learning_s": t_learn.interval, "inference_s": t_inf.interval,
         "dump_s": t_dump.interval, "traffic": eng.sync_traffic(),

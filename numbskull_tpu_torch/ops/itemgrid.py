@@ -91,6 +91,15 @@ WEIGHT_SALT_XOR = 0x33333333    # the L1 truncation coin
 LEARN_EPOCH0 = 1 << 16          # salt epoch of learning epoch 0
 RED_CHUNK = 1024                # items per chunk of the gradient sum
 
+
+class EnvelopeError(ValueError):
+    """A graph outside what the kernels are built for: cardinality above
+    K_MAX_SUP, more colors than the salt stride holds, a draw position
+    whose block index overflows the salt, or item offsets beyond int32.
+    The CLI runs such graphs on the tensor-op ``ops/gibbs.GibbsEngine``
+    instead; every other error of the kernel path raises."""
+
+
 #: launches of the CUDA sweep kernel in this process; the wrapper adds
 #: one where it launches and nowhere else
 KERNEL_LAUNCHES = 0
@@ -262,8 +271,8 @@ class Schedule:
             raise ValueError("schedule: colors, maps and draws differ in "
                              "length")
         if n > COLOR_MAX:
-            raise ValueError("schedule: %d colors > %d (the salt stride)"
-                             % (n, COLOR_MAX))
+            raise EnvelopeError("schedule: %d colors > %d (the salt "
+                                "stride)" % (n, COLOR_MAX))
         if any(m not in MAPS for m in self.maps) or \
                 any(d not in DRAWS for d in self.draws):
             raise ValueError("schedule: unknown map or draw")
@@ -363,8 +372,8 @@ def shard_rows(upos: np.ndarray, n_g: int, d: int):
     upos = np.asarray(upos, np.int64)
     nb = -(-len(upos) // (n_g * RB))
     if len(upos) and upos.max() >= nb * n_g * RB:
-        raise ValueError("draw position %d beyond the %d x %d blocks of "
-                         "the shards" % (upos.max(), n_g, nb))
+        raise EnvelopeError("draw position %d beyond the %d x %d blocks "
+                            "of the shards" % (upos.max(), n_g, nb))
     lo = d * nb * RB
     return np.flatnonzero((upos >= lo) & (upos < lo + nb * RB)), lo
 
@@ -460,12 +469,12 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         np.zeros(0, np.int64)
     row_item = np.concatenate(([0], np.cumsum(counts)))
     if row_item[-1] >= 2 ** 31 or n_arg_total >= 2 ** 31:
-        raise ValueError("graph too large for int32 item offsets")
+        raise EnvelopeError("graph too large for int32 item offsets")
     # the salt adds the block index upos >> 10 below 65536 (salt16_of)
     if any(len(r["upos"]) and r["upos"].max() >= RB << 16 for r in rows):
-        raise ValueError("a color has a draw position >= %d: its block "
-                         "index would overflow the salt's 16 bits"
-                         % (RB << 16))
+        raise EnvelopeError("a color has a draw position >= %d: its block "
+                            "index would overflow the salt's 16 bits"
+                            % (RB << 16))
     t = SweepTables(
         kmax=int(cg.kmax), n_vars=int(cg.n_vars),
         n_weights=int(cg.n_weights),
@@ -1253,7 +1262,8 @@ class ItemGridEngine:
                  device="cuda", schedule: Schedule | None = None):
         device = torch.device(device)
         if cg.kmax > K_MAX_SUP:
-            raise ValueError("cardinality %d > %d" % (cg.kmax, K_MAX_SUP))
+            raise EnvelopeError("cardinality %d > %d"
+                                % (cg.kmax, K_MAX_SUP))
         self.cg = cg
         self.device = device
         self.sample_evidence = bool(sample_evidence)

@@ -184,8 +184,10 @@ def test_cli_learning_diagnostics(tmp_path, capsys):
 def test_port_imports_no_jax():
     """In a fresh interpreter, after a learning and an inference run on
     the CPU (engine 'hbm'), a lattice run, the graph-sharded engine's
-    run, run_emulated and learn, and both partitioned engines: no jax and
-    no numbskull_tpu (the test process has imported both)."""
+    run, run_emulated and learn, both partitioned engines, a graph the
+    kernels refuse (cardinality 130, on the tensor-op engine), both
+    gathers and an import of every experiment driver: no jax and no
+    numbskull_tpu (the test process has imported both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
@@ -219,6 +221,25 @@ def test_port_imports_no_jax():
             "b.inference(1, 2)\n"
             "e = bsp.BSPEngine(*m[:4], part, device='cpu')\n"
             "e.inference(e.init_states(), torch.Generator(), 2)\n"
+            "from numbskull_tpu_torch.models import potts_grid\n"
+            "from numbskull_tpu_torch.ops.gibbs import GibbsEngine\n"
+            "ns = cli.NumbSkull(n_learning_epoch=2, n_inference_epoch=2,\n"
+            "                   quiet=True, device='cpu')\n"
+            "ns.loadFactorGraph(*potts_grid(2, 2, card=130, fixed=False))\n"
+            "ns.learning(out=False)\n"
+            "ns.inference(out=False)\n"
+            "assert isinstance(ns.factorGraphs[0].engine(True), "
+            "GibbsEngine)\n"
+            "from numbskull_tpu_torch.ops import gather\n"
+            "x = torch.ones(64)\n"
+            "gather.gather_sum(x, torch.zeros((2, 8), dtype=torch.int32), 2)\n"
+            "gather.shifted_sum(x, torch.tensor([0, 1], dtype=torch.int32),"
+            " 8, 2, 2)\n"
+            "import numbskull_tpu_torch.benchutil\n"
+            "for name in ('micro_gather', 'micro_gather2', "
+            "'micro_gather_xla', 'degree_sweep', 'hbm_scale', "
+            "'engine_tradeoff', 'profile_itemgrid'):\n"
+            "    __import__('numbskull_tpu_torch.experiments.' + name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"
