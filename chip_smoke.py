@@ -24,12 +24,14 @@ Phases (each one that fails exits non-zero; nothing is retried):
    Learn: for coin, Ising 64x64 with 30 % evidence, LF card 3 (L1,
    learn_non_evidence, one fixed weight), Potts 32x32 card 64 and 128
    with evidence, voting degree 50 with 30 % evidence, 4096 ISTRUE
-   weights (L1) and the max_colors=1 Ising, 2 burn-in and 5 learning
-   epochs from one state through the kernels and through
-   ``learn_color_step_reference``, compared after every (epoch, color):
-   weights and both chains must be bit-equal. Then an LF graph with
-   non-dyadic featureValues learns twice through the kernels: the two
-   runs must agree bit for bit.
+   weights (L1), the max_colors=1 Ising and a star whose centre row holds
+   5000 items (more than a learn tile's budget, so summed in pieces;
+   non-dyadic featureValues), 2 burn-in and 5 learning epochs from one
+   state through the kernels and through ``learn_color_step_reference``,
+   compared after every (epoch, color): weights and both chains must be
+   bit-equal. Then an LF graph and a coin graph with non-dyadic
+   featureValues each learn twice through the kernels: the two runs must
+   agree bit for bit, and with the plain version.
    Lattice: ``grid_gibbs`` (kernel #8) against ``grid_gibbs_reference``
    from one lattice, x and count bit-equal, on odd and even sides, 1 x m
    and n x 1, 70000 rows, weight 0.4 and -30, a bias, burn-in, and at
@@ -75,9 +77,11 @@ Phases (each one that fails exits non-zero; nothing is retried):
    other and to the plain versions on the same shard tables; learning on
    the grid with a learnable weight and 30 % evidence (1 burn-in + 2
    epochs) bit-equal to plain; every launch as counted; epoch times at
-   1, 2 and 4 shards with the exchange's share of the device time; the
+   1, 2 and 4 shards with the exchange's share of the device time;
+   learning at 1 and 4 shards with the device time per kernel; the
    unpack kernel, its plain version and ``index_copy_`` at one replica's
-   share; then 2 processes on the one card over a gloo group (file store
+   share (medians of each call's device time, kernel and ``index_copy_``
+   in turns); then 2 processes on the one card over a gloo group (file store
    in a temporary directory), whose values, counts and learned weights
    must equal the in-process 2-shard run bit for bit.
 
@@ -125,7 +129,8 @@ kernels #6 and #7 of the TPU package served); the last line is
 when no CUDA device is visible or the port's package is not beside this
 script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
 ``python3 chip_smoke.py bsp`` phases 1 and 9, ``python3 chip_smoke.py
-gather`` phases 1 and 10.
+gather`` phases 1 and 10, ``python3 chip_smoke.py learn`` phases 1, 2
+(learning), 4, 5 (learning and LF inference) and 7.
 """
 
 from __future__ import annotations
@@ -133,6 +138,7 @@ from __future__ import annotations
 import json
 import os
 import resource
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -194,6 +200,8 @@ STENCIL_FIXTURES = ((8, 8, 0.4, 0.0, 0, 6), (33, 17, 0.4, 0.0, 2, 6),
                     (19, 24, 0.3, 0.7, 5, 5), (1, 1, 0.4, 0.3, 3, 9),
                     (70000, 3, 0.4, 0.1, 1, 2))
 HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
+# the learn step kernels' names (csrc/itemgrid_learn.cu), in a trace
+LEARN_STEP_KERNELS = ("learn_step_kernel", "learn_item_kernel")
 
 
 def fail(msg: str):
@@ -272,8 +280,11 @@ def phase_device(torch):
         log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
                                else "cached"))
         if info:
+            # the learn kernels' whole report (entry, registers, shared
+            # memory, spills), the others' register and spill lines
             for line in info["ptxas"].splitlines():
-                if "registers" in line or "spill" in line:
+                if name == "itemgrid_learn" or "registers" in line or \
+                        "spill" in line:
                     log("    ptxas: " + line.strip())
 
 
@@ -481,7 +492,34 @@ def _learn_fixtures():
     out.append(("istrue4096_l1", compile_graph(w, v, f, fm), LearnParams(
         regularization=1, reg_param=0.01, truncation=3)))
     out.append(("ising64_max_colors1", _ising_one_color(), l2))
+    # one row of 5000 items, beyond a tile's item budget (summed in
+    # pieces), two weights, non-dyadic featureValues
+    n = 5000
+    rng = np.random.default_rng(11)
+    v = T.new_variables(n + 1)
+    v["isEvidence"] = (rng.random(n + 1) < 0.3).astype(np.int8)
+    v["initialValue"] = rng.integers(0, 2, n + 1)
+    v["cardinality"] = 2
+    w = T.new_weights(2)
+    w["isFixed"] = False
+    f = T.new_factors(n)
+    f["factorFunction"] = T.FUNC_EQUAL
+    f["weightId"] = np.arange(n) % 2
+    f["featureValue"] = rng.uniform(0.3, 1.7, n)
+    f["arity"] = 2
+    f["ftv_offset"] = 2 * np.arange(n)
+    fm = T.new_fmap(2 * n)
+    fm["vid"][0::2] = 0
+    fm["vid"][1::2] = np.arange(1, n + 1)
+    out.append(("star5000_oversized_row", compile_graph(w, v, f, fm), l2))
     return out
+
+
+def learn_launches_per_epoch(lt) -> int:
+    """Learn kernel launches of one epoch on these tables: per color with
+    rows, the step kernel, and the sum kernel when it has items."""
+    return sum(1 + (lt.n_wt[ci] > 0) for ci in range(lt.sweep.n_steps)
+               if lt.sweep.n_rows[ci] > 0)
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -554,7 +592,7 @@ def phase_learn_compare(torch):
     import numpy as np
 
     from numbskull_tpu_torch.compile import compile_graph
-    from numbskull_tpu_torch.models import lf_model
+    from numbskull_tpu_torch.models import coin_model, lf_model
     from numbskull_tpu_torch.ops import itemgrid as pig
     from numbskull_tpu_torch.ops.gibbs import LearnParams
     log("== phase 2: learn kernels vs plain version on the card "
@@ -564,22 +602,31 @@ def phase_learn_compare(torch):
         eng = pig.ItemGridEngine(cg, device=DEVICE)
         worst = max(worst, check_learn_equal(torch, name, eng, lp))
 
-    w, v, f, fm, dm, _ = lf_model(0.5, [0.9, 0.6, 0.3, 0.8], copies=5000,
-                                  seed=4)
-    f["featureValue"] = np.random.default_rng(5).uniform(0.3, 1.7, len(f))
-    eng = pig.ItemGridEngine(compile_graph(w, v, f, fm, domain_mask=dm),
-                             device=DEVICE)
+    # two kernel runs from one seed with non-dyadic featureValues (sums
+    # that round): the LF graph (KMAX 8) and the coin graph (KMAX 2, the
+    # items kept in registers)
     lp = LearnParams(regularization=2, reg_param=0.01,
                      learn_non_evidence=True)
-    runs = [eng.learn(3, 2, 20, 0.05, 0.98, lp) for _ in range(2)]
-    same = all(_bits_equal(torch, a, b) for a, b in zip(*runs))
-    _, _, err, _ = compare_learn(torch, eng, lp)
-    log("  lf non-dyadic featureValues: two kernel runs of 20 epochs %s; "
-        "weights %s; lockstep against the plain version max |diff| %g"
-        % ("bit-identical" if same else "DIFFER",
-           np.array2string(runs[0][0].cpu().numpy(), precision=6), err))
-    if not same:
-        fail("learn kernels are not deterministic (non-dyadic LF)")
+    rng = np.random.default_rng(5)
+    for name, model in (
+            ("lf", lf_model(0.5, [0.9, 0.6, 0.3, 0.8], copies=5000, seed=4)),
+            ("coin", coin_model(20000, *COIN_TRUTH, evidence=True,
+                                fixed=False, seed=6))):
+        w, v, f, fm, dm, _ = model
+        f["featureValue"] = rng.uniform(0.3, 1.7, len(f))
+        eng = pig.ItemGridEngine(compile_graph(w, v, f, fm, domain_mask=dm),
+                                 device=DEVICE)
+        runs = [eng.learn(3, 2, 20, 0.05, 0.98, lp) for _ in range(2)]
+        same = all(_bits_equal(torch, a, b) for a, b in zip(*runs))
+        _, _, err, _ = compare_learn(torch, eng, lp)
+        log("  %s non-dyadic featureValues: two kernel runs of 20 epochs "
+            "%s; weights %s; lockstep against the plain version max |diff| "
+            "%g" % (name, "bit-identical" if same else "DIFFER",
+                    np.array2string(runs[0][0].cpu().numpy(), precision=6),
+                    err))
+        if not same or err != 0:
+            fail("learn kernels are not deterministic or differ from the "
+                 "plain version (non-dyadic %s)" % name)
     return worst
 
 
@@ -683,9 +730,7 @@ def phase_learn_main_path(torch, workdir):
     eng = fg.engine(True)
     lt = eng.learn_tables()
     n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
-    per_epoch = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
-                    for ci in range(lt.sweep.n_steps)
-                    if lt.sweep.n_rows[ci] > 0)
+    per_epoch = learn_launches_per_epoch(lt)
     log("  main() took %.2f s; learning %.3f s, inference %.3f s; %d learn "
         "launches (%d per epoch), %d sweep launches, %d colors"
         % (wall, fg.learning_total_time, fg.inference_total_time, learns,
@@ -826,20 +871,20 @@ def sweep_epoch_cost(torch, t):
 
 
 def learn_epoch_cost(torch, lt):
-    """(bytes, operations) of one learning epoch through the three learn
-    kernels: the sweep's table reads and both chains' gathers and
-    writes, each item's featureValue and place in the weight order
-    (8 B), each chunk's bounds (8 B) and weight entry (12 B), the weights
-    read and written; the per-item and per-chunk scratch between the
-    kernels is not counted. Operations: both chains' potentials and
-    draws, and two more evaluations and a sum per item."""
+    """(bytes, operations) of one learning epoch, the work's own: each
+    step reads its rows (17 B), items (25 B) and their featureValues
+    (4 B) and arguments (13 B) once, gathers both chains' values once
+    (8 B per distinct variable read) and writes both chains' rows (8 B),
+    and the weights are read (with their fixed flags) and written once
+    (9 B). No order table of a design is charged. Operations: both
+    chains' potentials and draws, and two more evaluations and a sum per
+    item."""
     t = lt.sweep
     K = t.kmax
     rows = sum(t.n_rows)
     items, args = int(t.it_ftype.numel()), int(t.arg_vid.numel())
-    nbytes = rows * (17 + 8) + items * (25 + 8) + args * 13
+    nbytes = rows * (17 + 8) + items * (25 + 4) + args * 13
     nbytes += 8 * sum(_gathered(torch, t, ci) for ci in range(t.n_steps))
-    nbytes += 8 * int(lt.ch_start.numel()) + 12 * int(lt.wt_wid.numel())
     nbytes += 9 * t.n_weights
     ops = 2 * (K * (6 * args + 12 * items) + rows * (6 * K + 30))
     ops += 2 * (6 * args + 12 * items) + 2 * items
@@ -882,6 +927,44 @@ def device_busy(torch, fn, by_kernel=None):
     return dev_us / wall_us if dev_us > 0 else None
 
 
+def device_rows_us(torch, fn, reps):
+    """{name: device times (us)} of the device rows (kernels and copies)
+    in a trace of ``reps`` calls of ``fn``, each list in trace order (the
+    trace may drop a few rows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and
+                     e.self_device_time_total > 0),
+                    key=lambda e: e.time_range.start):
+        rows.setdefault(e.name, []).append(e.self_device_time_total)
+    return rows
+
+
+def median_call_ms(turns, reps):
+    """Median device time (ms) of one call, from device_rows_us of turns
+    of ``reps`` calls each: per kernel name, the median of its rows times
+    the rows it runs per call (from the fullest turn: the trace drops
+    some rows, which leaves a median unbiased), summed over the names.
+    Fails with fewer than 20 rows of a name."""
+    total = 0.0
+    for name in set().union(*turns):
+        rows = sum((t.get(name, []) for t in turns), [])
+        if len(rows) < 20:
+            fail("%s: %d device rows in %d calls" % (name, len(rows),
+                                                      reps * len(turns)))
+        per = max(1, round(max(len(t.get(name, ())) for t in turns) / reps))
+        total += per * statistics.median(rows)
+    return total / 1e3
+
+
 def log_kernel_times(by_kernel):
     """Log each kernel's calls in the trace and device time per call."""
     for name, (calls, us) in sorted(by_kernel.items(),
@@ -893,7 +976,8 @@ def log_kernel_times(by_kernel):
 def phase_rates(torch, ising_ns, coin_ns, card):
     """Phase 5; returns {graph: {"kernel": (ups, ms), "plain": ...}} for
     inference and learning, and the max kernel-vs-plain difference of
-    each on the LF graph."""
+    each on the LF graph. Without ``ising_ns`` (the `learn` mode) the
+    Ising inference rates are left out."""
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.models import lf_model
     from numbskull_tpu_torch.ops import itemgrid as pig
@@ -915,14 +999,16 @@ def phase_rates(torch, ising_ns, coin_ns, card):
     err_learn = check_learn_equal(torch, "lf200k", lf_eng, lp_lf, burn=2,
                                   epochs=3)
     graphs = (
-        ("ising1024", "infer", ising_ns.factorGraphs[0].engine(True), None,
-         (20, 220), (2, 12)),
+        ("ising1024", "infer", ising_ns and ising_ns.factorGraphs[0].engine(
+            True), None, (20, 220), (2, 12)),
         ("lf200k", "infer", lf_eng, None, (20, 220), (2, 12)),
         ("coin400k", "learn", coin_ns.factorGraphs[0].engine(True), lp_coin,
          (20, 120), (2, 6)),
         ("lf200k", "learn", lf_eng, lp_lf, (20, 120), (2, 6)))
     result = {}
     for gname, what, eng, lp, kern_pts, plain_pts in graphs:
+        if eng is None:               # `learn` mode: no phase 3 graph
+            continue
         meas = {}
         for which in ("plain", "kernel", "kernel", "plain"):
             pts = plain_pts if which == "plain" else kern_pts
@@ -931,11 +1017,14 @@ def phase_rates(torch, ising_ns, coin_ns, card):
             log("  %-9s %-5s %-6s %.6g variable updates/s, %.4f ms/epoch "
                 "(epochs %d..%d)" % (gname, what, which, ups, ms, *pts))
         result[(gname, what)] = {k: max(vs) for k, vs in meas.items()}
+        by_kernel = {}
         busy = device_busy(torch, (lambda: eng.run(1, 0, 50)) if lp is None
-                           else (lambda: eng.learn(1, 0, 50, 0.1, 0.99, lp)))
+                           else (lambda: eng.learn(1, 0, 50, 0.1, 0.99, lp)),
+                           by_kernel)
         log("  %-9s %-5s kernel device busy share over 50 epochs: %s"
             % (gname, what, "not measured (no device time in the trace)"
                if busy is None else "%.3f" % busy))
+        log_kernel_times(by_kernel)
     return result, err_sweep, err_learn
 
 
@@ -1109,9 +1198,7 @@ def phase_hbm(torch, card):
     eng = fg.engine(True)
     lt = eng.learn_tables()
     n_colors = sum(1 for r in eng.tables.n_rows if r > 0)
-    per_epoch = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
-                    for ci in range(lt.sweep.n_steps)
-                    if lt.sweep.n_rows[ci] > 0)
+    per_epoch = learn_launches_per_epoch(lt)
     if out["launches"] != (burn + epochs) * n_colors or \
             out["learn_launches"] != lrn * per_epoch or \
             out["learn_burn_launches"] != n_colors:
@@ -1122,9 +1209,10 @@ def phase_hbm(torch, card):
     marg = fg.full_marginals(epochs)[:, 1]
     wt = fg.getWeights()
     log("  mean marginal %.4f over %d variables; weight after learning "
-        "%.6f; max chunks per weight %d" % (
-            float(marg.mean()), len(marg), float(wt[0]),
-            int(lt.wt_nch.max())))
+        "%.6f; learn tiles per color %s, partials per weight %s, %d learn "
+        "launches per epoch" % (
+            float(marg.mean()), len(marg), float(wt[0]), lt.n_tiles,
+            lt.wt_np.tolist(), per_epoch))
     if not np.isfinite(marg).all() or not 0.45 < float(marg.mean()) < 0.55 \
             or float(wt[0]) == LATTICE_W:
         fail("hbm path outputs malformed or the weight did not move")
@@ -1310,9 +1398,8 @@ def phase_mc(torch, card):
                                plain=True)
     torch.cuda.synchronize()
     lts = leng.learn_tables()
-    per_step = sum(1 + (lt.n_ch[ci] > 0) + (lt.n_wt[ci] > 0)
-                   for lt in lts for ci in range(lt.sweep.n_steps)
-                   if lt.sweep.n_rows[ci] > 0) + leng.n_steps
+    per_step = sum(learn_launches_per_epoch(lt) for lt in lts) + \
+        leng.n_steps
     lbusy = sum(1 for t in leng.tables for n in t.n_rows if n > 0)
     lrecv = sum(sum(1 for d in range(MC_SHARDS)
                     if r.offs_host[-1] - (r.offs_host[d + 1] -
@@ -1370,6 +1457,22 @@ def phase_mc(torch, card):
     out["learn_ms"] = epoch_rate(
         torch, lambda k: leng.learn(1, 0, k, step, decay, lp),
         lcg.n_vars, 10, 50)[1]
+    leng1 = mc.MultiChipItemGridEngine(lcg, n_shards=1, device=DEVICE)
+    out["learn1_ms"] = min(epoch_rate(
+        torch, lambda k: leng1.learn(1, 0, k, step, decay, lp),
+        lcg.n_vars, 10, 50)[1] for _ in range(2))
+    by_kernel = {}
+    device_busy(torch, lambda: leng1.learn(1, 0, 20, step, decay, lp),
+                by_kernel)
+    log("  learning, 1 shard: %.4f ms/epoch (CUDA events, epochs 10..50); "
+        "device time per kernel over 20 epochs:" % out["learn1_ms"])
+    log_kernel_times(by_kernel)
+    by_kernel = {}
+    device_busy(torch, lambda: leng.learn(1, 0, 20, step, decay, lp),
+                by_kernel)
+    log("  learning, %d shards: device time per kernel over 20 epochs:"
+        % MC_SHARDS)
+    log_kernel_times(by_kernel)
     out["learn_plain_ms"] = epoch_rate(
         torch, lambda k: leng.learn(1, 0, k, step, decay, lp, plain=True),
         lcg.n_vars, 1, 2, tries=1, warm=False)[1]
@@ -1411,34 +1514,35 @@ def phase_mc(torch, card):
         fail("unpack kernel, its plain version and index_copy_ disagree")
     # a call of the wrapper costs more host time than the kernel takes on
     # the device, so each is timed both ways: CUDA events over 50 calls
-    # back to back (host included), and the device time of its kernels
-    # per call from the profiler's device rows (the record's numbers)
+    # back to back (host included), and each call's device time from the
+    # profiler's device rows; kernel and library in turns (kernel,
+    # library, library, kernel), the median call over both turns (the
+    # record's numbers)
     fns = {"kernel": lambda: mc.unpack(r0, pay, xk, None, 0),
            "plain": lambda: mc.unpack_reference(r0, pay, xq, None, 0),
            "library": lambda: xl.index_copy_(0, vid, buf)}
     reps = 50
-    t_host, t_dev = {}, {}
+    t_host, rows = {}, {}
     for which in ("plain", "kernel", "library", "library", "kernel",
                   "plain"):
         fn = fns[which]
         fn()
         ms = _time_epochs(torch, lambda k: [fn() for _ in range(k)], reps)
         t_host[which] = min(t_host.get(which, 1e30), ms / reps)
-        by_kernel = {}
-        device_busy(torch, lambda: [fn() for _ in range(reps)], by_kernel)
-        dev = sum(us for _, us in by_kernel.values()) / reps / 1e3
-        if dev > 0:
-            t_dev[which] = min(t_dev.get(which, 1e30), dev)
-    if len(t_dev) != 3:
-        fail("the profiler showed no device time for the unpack calls")
+        rows.setdefault(which, []).append(device_rows_us(torch, fn, reps))
+    med = {k: median_call_ms(turns, reps) for k, turns in rows.items()}
+    med["plain"] = min(sum(sum(t.values(), [])) for t in rows["plain"]) / \
+        reps / 1e3
     out["unpack_ms"], out["unpack_plain_ms"], out["unpack_lib_ms"] = (
-        t_dev["kernel"], t_dev["plain"], t_dev["library"])
+        med["kernel"], med["plain"], med["library"])
     out["unpack_cost"] = (12 * n_recv, 0)
-    log("  unpack of %d rows (shard 0's replica, step 0), device time per "
-        "call: kernel %.5f ms, plain %.5f ms, index_copy_ %.5f ms; with "
-        "the host (CUDA events, %d calls): %.5f, %.5f, %.5f ms; equal" % (
-            n_recv, t_dev["kernel"], t_dev["plain"], t_dev["library"],
-            reps, t_host["kernel"], t_host["plain"], t_host["library"]))
+    log("  unpack of %d rows (shard 0's replica, step 0), median device "
+        "time per call over %d calls each (in turns: kernel, library, "
+        "library, kernel): kernel %.5f ms, index_copy_ %.5f ms; plain %.5f "
+        "ms (total / calls); with the host (CUDA events, %d calls): %.5f, "
+        "%.5f, %.5f ms; equal" % (
+            n_recv, 2 * reps, med["kernel"], med["library"], med["plain"],
+            reps, t_host["kernel"], t_host["library"], t_host["plain"]))
 
     # two processes on the one card, gloo through host memory
     ref2 = engines[2].run(*MC_RUN)
@@ -1524,12 +1628,13 @@ def _bsp_partition(model, n_parts):
     return part
 
 
-def _kernel_call_ms(torch, fn, name):
-    """Device time per launch of kernels whose name holds ``name`` in a
-    trace of fn(), or None when the trace shows none."""
+def _kernel_call_ms(torch, fn, names):
+    """Device time per launch of kernels whose name holds one of
+    ``names`` in a trace of fn(), or None when the trace shows none."""
     by_kernel = {}
     device_busy(torch, fn, by_kernel)
-    hits = [(c, us) for k, (c, us) in by_kernel.items() if name in k]
+    hits = [(c, us) for k, (c, us) in by_kernel.items()
+            if any(n in k for n in names)]
     calls = sum(c for c, _ in hits)
     return sum(us for _, us in hits) / 1e3 / calls if calls else None
 
@@ -1619,9 +1724,9 @@ def _bsp_infer_case(torch, model, part, mode, out):
         # launches without the table
         e0 = eng.engines[0]
         r["ext_call_ms"] = _kernel_call_ms(
-            torch, lambda: e0.run(1, 0, 20, ext_pot=ext), "sweep_color")
+            torch, lambda: e0.run(1, 0, 20, ext_pot=ext), ("sweep_color",))
         r["noext_call_ms"] = _kernel_call_ms(
-            torch, lambda: e0.run(1, 0, 20), "sweep_color")
+            torch, lambda: e0.run(1, 0, 20), ("sweep_color",))
         out["sweep_ms"] = min(epoch_rate(
             torch, lambda k: e0.run(1, 0, k, ext_pot=ext), len(v), 20,
             120)[1] for _ in range(2))
@@ -1709,9 +1814,9 @@ def _bsp_learn_case(torch, name, model, part, args, out, rates=False):
     e0 = eng.engines[0]
     r["ext_call_ms"] = _kernel_call_ms(
         torch, lambda: e0.learn(1, 0, 5, step, lp=lp, ext_pot=ext,
-                                ext_pot_evid=ext_e), "learn_step")
+                                ext_pot_evid=ext_e), LEARN_STEP_KERNELS)
     r["noext_call_ms"] = _kernel_call_ms(
-        torch, lambda: e0.learn(1, 0, 5, step, lp=lp), "learn_step")
+        torch, lambda: e0.learn(1, 0, 5, step, lp=lp), LEARN_STEP_KERNELS)
     log("  %s: %.4f ms per learning sync (CUDA events, epochs 2..6); split "
         "%s ms; device busy share over 5 syncs %s; learn step device time "
         "per launch %s ms with the tables, %s without" % (
@@ -2097,6 +2202,38 @@ def finish(torch, card, records):
         "count": torch.cuda.device_count()}}))
 
 
+def learn_phases(torch, card):
+    """The `learn` mode's phases: 2 (learning), 4, 5 (without the Ising
+    inference rates) and 7. Returns the arguments of learn_record."""
+    worst_l = phase_learn_compare(torch)
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
+        learns, coin_ns, err4 = phase_learn_main_path(torch, work)
+        rates, _, err5_l = phase_rates(torch, None, coin_ns, card)
+    cost = learn_epoch_cost(
+        torch, coin_ns.factorGraphs[0].engine(True).learn_tables())
+    del coin_ns
+    hbm = phase_hbm(torch, card)
+    return (learns, max(worst_l, err4, err5_l),
+            rates[("coin400k", "learn")], cost, hbm)
+
+
+def learn_record(torch, learns, err, learn, cost, hbm):
+    """The kernels-line record of the learn kernels (TPU kernel #2, and
+    under ``hbm`` #7): launches of phase 4, times of phase 5 on the coin
+    graph, the 33.5 M path of phase 7."""
+    rec = dict(LEARN, launches=learns, max_abs_err=max(err,
+                                                       hbm["err_learn"]),
+               ms=learn["kernel"][1], plain_ms=learn["plain"][1],
+               library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = bound(*cost)
+    rec["hbm"] = {"serves": "numbskull_tpu/ops/itemgrid_pallas.py:4027",
+                  "launches": hbm["learn_launches"],
+                  "ms": hbm["learn_kernel"][1],
+                  "plain_ms": hbm["learn_plain"][1],
+                  "bound_ms": bound(*hbm["learn_cost"])[0]}
+    return rec
+
+
 def main():
     torch = setup()
     card = card_line()
@@ -2109,6 +2246,9 @@ def main():
         return
     if sys.argv[1:] == ["gather"]:    # phases 1 and 10 only
         finish(torch, card, gather_records(phase_gather(torch, card)))
+        return
+    if sys.argv[1:] == ["learn"]:     # phases 1, 2 (learning), 4, 5, 7
+        finish(torch, card, [learn_record(torch, *learn_phases(torch, card))])
         return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
@@ -2128,31 +2268,25 @@ def main():
     bspr = phase_bsp(torch, card)
     gatherr = phase_gather(torch, card)
     sweep = rates[("ising1024", "infer")]
-    learn = rates[("coin400k", "learn")]
     grid = lattice[LATTICES[0]]
     records = [
         dict(SWEEP, launches=launches, max_abs_err=max(worst, err3, err5,
                                                        hbm["err"]),
              ms=sweep["kernel"][1], plain_ms=sweep["plain"][1]),
-        dict(LEARN, launches=learns, max_abs_err=max(worst_l, err4, err5_l,
-                                                     hbm["err_learn"]),
-             ms=learn["kernel"][1], plain_ms=learn["plain"][1]),
+        learn_record(torch, learns, max(worst_l, err4, err5_l),
+                     rates[("coin400k", "learn")], learn_cost, hbm),
         dict(STENCIL, launches=stencil_launches, max_abs_err=worst_s,
              ms=grid["kernel"][1], plain_ms=grid["plain"][1])]
-    for rec, cost in zip(records, (sweep_cost, learn_cost,
-                                   stencil_epoch_cost(LATTICES[0],
+    for rec, cost in ((records[0], sweep_cost),
+                      (records[2], stencil_epoch_cost(LATTICES[0],
                                                       LATTICES[0]))):
         rec["bound_ms"], rec["bound_by"] = bound(*cost)
         rec["library_ms"] = None      # no single PyTorch call does this
-    for rec, key, tpu, cost, what in zip(
-            records, ("launches", "learn_launches"),
-            ("numbskull_tpu/ops/itemgrid_pallas.py:3595",
-             "numbskull_tpu/ops/itemgrid_pallas.py:4027"),
-            (hbm["sweep_cost"], hbm["learn_cost"]), ("infer", "learn")):
-        rec["hbm"] = {"serves": tpu, "launches": hbm[key],
-                      "ms": hbm[what + "_kernel"][1],
-                      "plain_ms": hbm[what + "_plain"][1],
-                      "bound_ms": bound(*cost)[0]}
+    records[0]["hbm"] = {
+        "serves": "numbskull_tpu/ops/itemgrid_pallas.py:3595",
+        "launches": hbm["launches"], "ms": hbm["infer_kernel"][1],
+        "plain_ms": hbm["infer_plain"][1],
+        "bound_ms": bound(*hbm["sweep_cost"])[0]}
     records += mc_records(mcr) + bsp_records(bspr) + \
         gather_records(gatherr)
     finish(torch, card, records)

@@ -8,7 +8,7 @@ n x n, grouped voting at degree 10 and 50) it profiles ``epochs``
 inference epochs of ``ItemGridEngine.run`` and ``epochs // 10`` learning
 epochs of ``.learn`` after one warm-up epoch of each, and writes per
 kernel name its calls and device time per epoch (the sweep; the learn
-step, reduce and update), then one ``all`` row with the epoch's wall
+step and sum), then one ``all`` row with the epoch's wall
 time (host clock, ended by a synchronize), the device's busy share of
 it, and the median host gap between one kernel's end and the next one's
 start. The graphs carry a learnable weight and 30 % evidence, so that

@@ -11,11 +11,13 @@ original variable order on the device, every color's rows and their
 items live in flat CSR tables (:func:`build_tables`), and one launch of
 ``csrc/itemgrid_sweep.cu`` per (epoch, color) resamples a color with one
 thread per row. Learning (:func:`learn_color`) launches
-``csrc/itemgrid_learn.cu`` three times per (epoch, color): both chains'
-draws and per-item gradients, a per-weight reduction in a fixed order,
-and the weight update. The graph-sharded engine (``ops/itemgrid_mc.py``)
-runs the same kernels on one shard's tables (:func:`build_tables` with
-``shard``, :func:`shard_rows`) with the shard's seed and salt
+``csrc/itemgrid_learn.cu`` twice per (epoch, color): both chains' draws
+with each tile of rows' gradients summed per weight into partial slots,
+then each weight's partials summed and its update; both sums have an
+order fixed by the tables (:func:`build_learn_tables`). The
+graph-sharded engine (``ops/itemgrid_mc.py``) runs the same kernels on
+one shard's tables (:func:`build_tables` with ``shard``,
+:func:`shard_rows`) with the shard's seed and salt
 (:func:`mc_seed977_of`, :func:`mc_salt16_of`, :func:`mc_learn_seed_of`),
 packs each row's new value for the exchange through the kernels'
 optional ``send`` pointers, and in learning replaces the update by a
@@ -89,7 +91,11 @@ BURN_SALT_XOR = 0x40000000      # learning's burn-in draws
 CLAMPED_SALT_XOR = 0x55555555   # the clamped chain's draws
 WEIGHT_SALT_XOR = 0x33333333    # the L1 truncation coin
 LEARN_EPOCH0 = 1 << 16          # salt epoch of learning epoch 0
-RED_CHUNK = 1024                # items per chunk of the gradient sum
+TILE_ROWS = 128      # rows per learn tile: threads of a step block
+TILE_ITEMS = 4096    # items per piece: a tile's shared-memory budget
+SUM_WIDTH = 1024     # threads of a weight-sum block: a weight with more
+#                      partials than this takes one, any other a warp
+WARP = 32
 
 
 class EnvelopeError(ValueError):
@@ -103,7 +109,7 @@ class EnvelopeError(ValueError):
 #: launches of the CUDA sweep kernel in this process; the wrapper adds
 #: one where it launches and nowhere else
 KERNEL_LAUNCHES = 0
-#: launches of the CUDA learn kernels (step, reduce, update)
+#: launches of the CUDA learn kernels (step, sum; partial, apply)
 LEARN_LAUNCHES = 0
 #: sweep launches that carry an external potential table (the has_ext
 #: form; counted in KERNEL_LAUNCHES too)
@@ -581,11 +587,10 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
         elif name == "itemgrid_exchange":
             sigs = {"nsx_exchange_unpack": [P] * 5 + [I] * 6 + [P]}
         else:
-            sigs = {"nsx_learn_step": [P] * 28 + [I] * 7 + [P],
-                    "nsx_learn_reduce": [P] * 7 + [I] * 2 + [P],
-                    "nsx_learn_update": [P] * 7 + [I] * 4 + [F] * 4 +
+            sigs = {"nsx_learn_step": [P] * 36 + [I] * 11 + [P],
+                    "nsx_learn_sum": [P] * 7 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P],
-                    "nsx_learn_partial": [P] * 7 + [I] * 3 + [P],
+                    "nsx_learn_partial": [P] * 7 + [I] * 5 + [P],
                     "nsx_learn_apply": [P] * 3 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P]}
         for fn_name, argtypes in sigs.items():
@@ -730,73 +735,191 @@ class LearnTables:
     so that inference-only runs upload nothing of it.
 
     ``sweep`` is the tables under the learn schedule (every step `row`
-    and `cdf`; the tensors are shared). The gradient of step ci sums,
-    per weight, the step's items in a fixed order: ``red_item`` lists
-    each step's items sorted by (weight, item); each weight's run is cut
-    into chunks of at most RED_CHUNK (``ch_start``, ``ch_len``), and
-    ``wt_*`` name, per step, each weight with items and its chunks."""
+    and `cdf`; the tensors are shared). The rest fix the order in which
+    a step's gradients sum (:func:`build_learn_tables`): its rows are cut
+    into tiles (``tl_*``), a tile's items into pieces of at most
+    TILE_ITEMS (``pc_*``), a piece's items into one group per weight
+    (``gr_*``; listed through ``perm`` when the piece holds more than one
+    weight), each group with a partial slot (``part_g``, ``part_n``),
+    slots weight-major with tiles in row order; ``wt_*`` name, per step,
+    each weight with items and its run of slots, the ``n_big`` weights
+    with more than SUM_WIDTH slots first."""
 
     sweep: SweepTables
     it_fv: torch.Tensor        # (I,) float32 featureValue
     w_fixed: torch.Tensor      # (W,) int8
-    red_item: torch.Tensor     # (I,) int32 item ids, by (step, wid, item)
-    ch_start: torch.Tensor     # (NC,) int32 first entry in red_item
-    ch_len: torch.Tensor       # (NC,) int32
+    tl_r0: torch.Tensor        # (NT + 1,) int32 first row of each tile
+    tl_pc0: torch.Tensor       # (NT + 1,) int32 first piece of each tile
+    pc_g0: torch.Tensor        # (NP + 1,) int32 first group of each piece
+    pc_perm: torch.Tensor      # (NP,) int32 start of its list, -1: one group
+    gr_off: torch.Tensor       # (NG,) int32 first entry in its piece's list
+    gr_len: torch.Tensor       # (NG,) int32 items
+    gr_slot: torch.Tensor      # (NG,) int32 partial slot
+    perm: torch.Tensor         # (NL,) int32 piece-local items by weight
     wt_wid: torch.Tensor       # (NW,) int32 weight id
-    wt_ch0: torch.Tensor       # (NW,) int32 first chunk
-    wt_nch: torch.Tensor       # (NW,) int32 chunk count
-    ch0: list                  # per step: first chunk
-    n_ch: list                 # per step: chunk count
+    wt_p0: torch.Tensor        # (NW,) int32 first partial slot
+    wt_np: torch.Tensor        # (NW,) int32 partial slots
+    part_g: torch.Tensor       # (NG,) float32 scratch: partial sums
+    part_n: torch.Tensor       # (NG,) int32 scratch: partial counts
+    tile0: list                # per step: first tile
+    n_tiles: list              # per step: tiles
+    smem_items: list           # per step: its longest piece
     wt0: list                  # per step: first weight entry
     n_wt: list                 # per step: weight entries
-    item_g: torch.Tensor       # (I,) float32 scratch: per-item gradient
-    item_inc: torch.Tensor     # (I,) int8 scratch: item counted
-    chunk_g: torch.Tensor      # (NC,) float32 scratch: chunk sums
-    chunk_n: torch.Tensor      # (NC,) int32 scratch: chunk counts
-    host: dict                 # numpy copies of red_item, ch_*, wt_*
+    n_big: list                # per step: entries summed by a block
+    host: list                 # per step: its order tables, local to it
+    #                            (numpy, from _step_order)
     ptrs: dict = dataclasses.field(default_factory=dict)
     _plain: dict = dataclasses.field(default_factory=dict)
 
 
+_ORDER_FIELDS = ("tl_r0", "tl_pc0", "pc_g0", "pc_perm", "gr_off", "gr_len",
+                 "gr_slot", "perm", "part_g", "part_n")
+
+
+def _cut_tiles(counts: np.ndarray) -> np.ndarray:
+    """The first row of every tile of a step whose rows hold ``counts``
+    items: the rows in runs of TILE_ROWS, and a run of more than
+    TILE_ITEMS items cut greedily into tiles of at most TILE_ITEMS items;
+    a row of more than TILE_ITEMS items is a tile of its own (its items
+    are summed in pieces)."""
+    counts = np.asarray(counts, np.int64)
+    n = len(counts)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    starts = np.arange(0, n, TILE_ROWS)
+    fits = np.add.reduceat(counts, starts) <= TILE_ITEMS
+    if fits.all():
+        return starts
+    cum = np.concatenate(([0], np.cumsum(counts)))
+    cut = [starts[fits]]
+    for a in starts[~fits]:
+        b = min(a + TILE_ROWS, n)
+        s = a
+        while s < b:
+            cut.append([s])
+            if counts[s] > TILE_ITEMS:
+                s += 1
+            else:
+                e = np.searchsorted(cum, cum[s] + TILE_ITEMS, "right") - 1
+                s = min(e, b)
+    return np.sort(np.concatenate(cut).astype(np.int64))
+
+
+def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
+    """One step's order tables, local to the step (rows, items, pieces,
+    groups and slots numbered from 0): tiles from :func:`_cut_tiles`,
+    pieces of TILE_ITEMS items, one group per (piece, weight) listing
+    the piece's items of that weight in item order, slots weight-major
+    with pieces in row order, and the weights with their slot runs, the
+    ones with more than SUM_WIDTH slots first."""
+    n = len(counts)
+    cum = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    ts = _cut_tiles(counts)
+    it0, it1 = cum[ts], cum[np.append(ts[1:], n)]
+    npc = -(-(it1 - it0) // TILE_ITEMS)
+    pc0 = np.concatenate(([0], np.cumsum(npc)))
+    tile_of = np.repeat(np.arange(len(ts)), npc)
+    ps = it0[tile_of] + (np.arange(pc0[-1]) - pc0[tile_of]) * TILE_ITEMS
+    plen = np.minimum(ps + TILE_ITEMS, it1[tile_of]) - ps
+    NP = len(ps)
+    if NP:
+        lo, hi = np.minimum.reduceat(wl, ps), np.maximum.reduceat(wl, ps)
+    else:
+        lo = hi = np.zeros(0, np.int64)
+    one = lo == hi
+    g_pc, g_wid = [np.flatnonzero(one)], [lo[one]]
+    g_off, g_len = [np.zeros(int(one.sum()), np.int64)], [plen[one]]
+    pc_perm = np.full(NP, -1, np.int64)
+    perm = np.zeros(0, np.int64)
+    if not one.all():
+        many = np.flatnonzero(~one)
+        pc_perm[many] = np.cumsum(plen[many]) - plen[many]
+        items = np.flatnonzero(np.repeat(~one, plen))
+        pc_of = np.repeat(np.arange(NP), plen)[items]
+        order = np.lexsort((wl[items], pc_of))        # stable: item order
+        items, pc_of = items[order], pc_of[order]
+        w_of = wl[items]
+        perm = items - ps[pc_of]
+        brk = np.flatnonzero(np.concatenate(
+            ([True], (pc_of[1:] != pc_of[:-1]) | (w_of[1:] != w_of[:-1]))))
+        g_pc.append(pc_of[brk])
+        g_wid.append(w_of[brk])
+        g_off.append(brk - pc_perm[pc_of[brk]])
+        g_len.append(np.diff(np.append(brk, len(items))))
+    g_pc, g_wid, g_off, g_len = (np.concatenate(a) for a in
+                                 (g_pc, g_wid, g_off, g_len))
+    by_pc = np.lexsort((g_wid, g_pc))
+    g_pc, g_wid, g_off, g_len = (a[by_pc] for a in
+                                 (g_pc, g_wid, g_off, g_len))
+    by_w = np.lexsort((g_pc, g_wid))
+    slot = np.empty(len(g_pc), np.int64)
+    slot[by_w] = np.arange(len(g_pc))
+    wid, p0, nps = np.unique(g_wid[by_w], return_index=True,
+                             return_counts=True)
+    big = nps > SUM_WIDTH
+    wt = np.concatenate((np.flatnonzero(big), np.flatnonzero(~big)))
+    return dict(tl_r0=ts, tl_pc0=pc0[:-1],
+                pc_g0=np.concatenate(([0], np.cumsum(np.bincount(
+                    g_pc, minlength=NP))))[:-1],
+                pc_perm=pc_perm, pc_start=ps, pc_len=plen,
+                gr_off=g_off, gr_len=g_len, gr_slot=slot, perm=perm,
+                wt_wid=wid[wt], wt_p0=p0[wt], wt_np=nps[wt],
+                n_big=int(big.sum()),
+                smem_items=int(plen.max()) if NP else 0)
+
+
 def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
-    """The learn tables of ``t`` on its device."""
+    """The learn tables of ``t`` on its device (see LearnTables)."""
     dev = t.device
     fv = [np.asarray(p.it_fv)[iv] for p, iv in zip(t.plans, t.item_index)]
-    wid = [np.asarray(p.it_wid)[iv].astype(np.int64)
-           for p, iv in zip(t.plans, t.item_index)]
-    red, ch_s, ch_l, w_w, w_c0, w_n = [], [], [], [], [], []
-    ch0, n_ch, wt0, n_wt, nc, nw = [], [], [], [], 0, 0
-    for ci, wl in enumerate(wid):
-        lo = t.item0[ci]
-        order = np.argsort(wl, kind="stable")
-        uw, first, cnt = np.unique(wl[order], return_index=True,
-                                   return_counts=True)
-        nch = -(-cnt // RED_CHUNK)
-        rep = np.repeat(np.arange(len(uw)), nch)
-        within = np.arange(int(nch.sum())) - np.repeat(np.cumsum(nch) - nch,
-                                                       nch)
-        starts = first[rep] + within * RED_CHUNK
-        red.append(lo + order)
-        ch_s.append(lo + starts)
-        ch_l.append(np.minimum(RED_CHUNK, first[rep] + cnt[rep] - starts))
-        w_w.append(uw)
-        w_c0.append(nc + np.cumsum(nch) - nch)
-        w_n.append(nch)
-        ch0.append(nc)
-        n_ch.append(int(nch.sum()))
-        wt0.append(nw)
-        n_wt.append(len(uw))
-        nc += n_ch[-1]
-        nw += n_wt[-1]
+    row_item = t.row_item.cpu().numpy().astype(np.int64)
+    parts = {k: [] for k in _ORDER_FIELDS[:-2] + ("wt_wid", "wt_p0",
+                                                  "wt_np")}
+    lists = {k: [] for k in ("tile0", "n_tiles", "smem_items", "wt0",
+                             "n_wt", "n_big")}
+    nt = npc = ng = nl = nw = 0
+    steps = []
+    for ci in range(t.n_steps):
+        lo, n = t.row0[ci], t.n_rows[ci]
+        wl = np.asarray(t.plans[ci].it_wid)[t.item_index[ci]].astype(
+            np.int64)
+        o = _step_order(np.diff(row_item[lo:lo + n + 1]), wl)
+        steps.append(o)
+        parts["tl_r0"].append(lo + o["tl_r0"])
+        parts["tl_pc0"].append(npc + o["tl_pc0"])
+        parts["pc_g0"].append(ng + o["pc_g0"])
+        parts["pc_perm"].append(np.where(o["pc_perm"] < 0, -1,
+                                         nl + o["pc_perm"]))
+        parts["gr_off"].append(o["gr_off"])
+        parts["gr_len"].append(o["gr_len"])
+        parts["gr_slot"].append(ng + o["gr_slot"])
+        parts["perm"].append(o["perm"])
+        parts["wt_wid"].append(o["wt_wid"])
+        parts["wt_p0"].append(ng + o["wt_p0"])
+        parts["wt_np"].append(o["wt_np"])
+        for k, v in (("tile0", nt), ("n_tiles", len(o["tl_r0"])),
+                     ("smem_items", o["smem_items"]), ("wt0", nw),
+                     ("n_wt", len(o["wt_wid"])), ("n_big", o["n_big"])):
+            lists[k].append(v)
+        nt += len(o["tl_r0"])
+        npc += len(o["pc_start"])
+        ng += len(o["gr_len"])
+        nl += len(o["perm"])
+        nw += len(o["wt_wid"])
+    # sentinels: the end of the last tile, piece and group
+    parts["tl_r0"].append([len(row_item) - 1])
+    parts["tl_pc0"].append([npc])
+    parts["pc_g0"].append([ng])
 
-    def cat(parts, dtype):
-        a = np.concatenate(parts) if parts else np.zeros(0)
+    def cat(a, dtype):
+        a = np.concatenate(a) if a else np.zeros(0)
         return np.ascontiguousarray(a.astype(dtype))
 
-    host = dict(red_item=cat(red, np.int32), ch_start=cat(ch_s, np.int32),
-                ch_len=cat(ch_l, np.int32), wt_wid=cat(w_w, np.int32),
-                wt_ch0=cat(w_c0, np.int32), wt_nch=cat(w_n, np.int32))
-    n_items = t.item0[-1] + len(t.item_index[-1]) if t.n_steps else 0
+    tabs = {k: cat(v, np.int64) for k, v in parts.items()}
+    if max((int(np.abs(v).max()) for v in tabs.values() if len(v)),
+           default=0) >= 2 ** 31:
+        raise EnvelopeError("learn order tables beyond int32")
 
     def up(a):
         return torch.as_tensor(a, device=dev)
@@ -808,17 +931,13 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
                                   t.n_steps),
         it_fv=up(cat(fv, np.float32)),
         w_fixed=up(np.asarray(weight_fixed).astype(np.int8)),
-        **{k: up(v) for k, v in host.items()},
-        ch0=ch0, n_ch=n_ch, wt0=wt0, n_wt=n_wt,
-        item_g=torch.zeros(n_items, dtype=torch.float32, device=dev),
-        item_inc=torch.zeros(n_items, dtype=torch.int8, device=dev),
-        chunk_g=torch.zeros(nc, dtype=torch.float32, device=dev),
-        chunk_n=torch.zeros(nc, dtype=torch.int32, device=dev),
-        host=host)
+        **{k: up(v.astype(np.int32)) for k, v in tabs.items()},
+        part_g=torch.zeros(ng, dtype=torch.float32, device=dev),
+        part_n=torch.zeros(ng, dtype=torch.int32, device=dev),
+        host=steps, **lists)
     if dev.type == "cuda":
         lt.ptrs = {name: _ptr(getattr(lt, name)) for name in (
-            "it_fv", "w_fixed", "red_item", "ch_start", "ch_len", "wt_wid",
-            "wt_ch0", "wt_nch", "item_g", "item_inc", "chunk_g", "chunk_n")}
+            "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + _ORDER_FIELDS}
     return lt
 
 
@@ -891,7 +1010,7 @@ def learn_color_step_reference(lt: LearnTables, ci: int, x: torch.Tensor,
                                seed: int, epoch: int, hs: LearnStep,
                                ext_p: torch.Tensor | None = None,
                                ext_e: torch.Tensor | None = None) -> None:
-    """Plain PyTorch version of one learn step (the three kernel
+    """Plain PyTorch version of one learn step (the two kernel
     launches): both chains of step ``ci`` resample in place in ``x``
     (free) and ``xe`` (clamped), then the weights ``w`` take one SGD
     step, in place.
@@ -923,8 +1042,9 @@ def learn_rows_reference(lt: LearnTables, ci: int, x: torch.Tensor,
                          ext_p: torch.Tensor | None = None,
                          ext_e: torch.Tensor | None = None):
     """Both chains' half of :func:`learn_color_step_reference` (the step
-    and reduce kernels): resample step ``ci`` in place and return, per
-    weight of the step (``wt_wid`` order), the gradient sum and count.
+    kernel, and the sums of the sum kernel): resample step ``ci`` in
+    place and return, per weight of the step (``wt_wid`` order), the
+    gradient sum and count.
     ``send`` / ``send_e`` receive the rows' values of each chain after
     the step, in row order; ``ext_p`` / ``ext_e`` are added to the free
     / clamped chain's potentials after the items
@@ -1002,10 +1122,10 @@ def learn_color_partial_reference(lt: LearnTables, ci: int,
                                   send_e: torch.Tensor | None = None,
                                   ext_p: torch.Tensor | None = None,
                                   ext_e: torch.Tensor | None = None) -> None:
-    """Plain version of :func:`learn_color_partial` (the step, reduce
-    and partial kernels): the shard's per-weight sums of step ``ci`` as
-    dense vectors, ``part`` (2W,) int32 = (gradient sums as float32
-    bits, counts), zero for weights not in the step."""
+    """Plain version of :func:`learn_color_partial` (the step kernel and
+    the sum kernel's dense epilogue): the shard's per-weight sums of step
+    ``ci`` as dense vectors, ``part`` (2W,) int32 = (gradient sums as
+    float32 bits, counts), zero for weights not in the step."""
     W = lt.w_fixed.numel()
     part.zero_()
     if lt.sweep.n_rows[ci] == 0:
@@ -1039,65 +1159,102 @@ def learn_apply_reference(payload: torch.Tensor, goff: int,
         _coin_salt(epoch, ci), hs)
 
 
-def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
-                 inc: torch.Tensor):
-    """Per weight of step ``ci`` (``wt_wid`` order): the sum of its
-    items' gradients and their count, added in the order of the reduce
-    and update kernels. A chunk of up to RED_CHUNK items, padded with
-    zeros, is a (32, 32) block: lane l adds entries j * 32 + l for j in
-    order, then the 32 lane sums halve pairwise (l + h into l, h = 16,
-    8, 4, 2, 1). A weight adds its chunk sums in chunk order. Explicit
-    elementwise adds only: index_add_ and sum leave the order open."""
-    dev = grad.device
-    if ci not in lt._plain:
-        h = lt.host
-        c0, nc = lt.ch0[ci], lt.n_ch[ci]
-        item_lo = lt.sweep.item0[ci]
-        j = np.arange(RED_CHUNK)[None, :]
-        starts = h["ch_start"][c0:c0 + nc].astype(np.int64)[:, None]
-        lens = h["ch_len"][c0:c0 + nc].astype(np.int64)[:, None]
-        pos = np.minimum(starts + j, len(h["red_item"]) - 1)
-        idx = np.where(j < lens, h["red_item"][pos].astype(np.int64) -
-                       item_lo, -1)
-        a, m = lt.wt0[ci], lt.n_wt[ci]
-        wc0 = h["wt_ch0"][a:a + m].astype(np.int64) - c0
-        wnc = h["wt_nch"][a:a + m].astype(np.int64)
-        lt._plain[ci] = tuple(torch.as_tensor(v, device=dev)
-                              for v in (idx, wc0, wnc))
-    idx, wc0, wnc = lt._plain[ci]
-    if not len(wc0):
-        return (torch.zeros(0, dtype=torch.float32, device=dev),
-                torch.zeros(0, dtype=torch.int32, device=dev))
-    pad = idx < 0
-    g = torch.where(pad, 0.0, grad[idx.clamp(min=0)]).view(-1, 32, 32)
-    c = torch.where(pad, 0, inc[idx.clamp(min=0)]).view(-1, 32, 32)
-    acc = torch.zeros_like(g[:, 0, :])
-    cnt = torch.zeros_like(c[:, 0, :])
-    for jj in range(32):
-        acc = acc + g[:, jj, :]
-        cnt = cnt + c[:, jj, :]
-    h = 16
+def _tree_sums(vals: torch.Tensor, cnts: torch.Tensor,
+               starts: torch.Tensor, lens: torch.Tensor, n_iter: int,
+               width: int, at: torch.Tensor | None = None):
+    """Segment sums in the kernels' order: segment s is ``lens[s]``
+    entries from ``starts[s]`` (of ``vals``, or of ``vals[at]``); lane l
+    of ``width`` adds entries l, l + width, ... in order from 0.0, then
+    the lane sums halve pairwise (lane l adds lane l + h, h = width / 2,
+    ..., 1). ``n_iter`` is the longest segment's entries per lane.
+    Counts add the same way (integers: any order)."""
+    S = len(starts)
+    acc = torch.zeros((S, width), dtype=torch.float32, device=vals.device)
+    cnt = torch.zeros((S, width), dtype=torch.int32, device=vals.device)
+    top = (len(vals) if at is None else len(at)) - 1
+    lane = torch.arange(width, device=vals.device)[None, :]
+    for j in range(n_iter):
+        pos = lane + j * width
+        take = pos < lens[:, None]
+        idx = (starts[:, None] + pos).clamp(max=max(top, 0))
+        if at is not None:
+            idx = at[idx]
+        acc = torch.where(take, acc + vals[idx], acc)
+        cnt = torch.where(take, cnt + cnts[idx], cnt)
+    h = width // 2
     while h:
         acc = acc[:, :h] + acc[:, h:2 * h]
         cnt = cnt[:, :h] + cnt[:, h:2 * h]
         h //= 2
-    acc, cnt = acc[:, 0], cnt[:, 0]
-    gsum, nsum = acc[wc0], cnt[wc0]
-    for k in range(1, int(wnc.max())):
-        more = k < wnc
-        at = torch.where(more, wc0 + k, wc0)
-        gsum = torch.where(more, gsum + acc[at], gsum)
-        nsum = torch.where(more, nsum + cnt[at], nsum)
-    return gsum, nsum
+    return acc[:, 0], cnt[:, 0]
+
+
+def _plain_order(lt: LearnTables, ci: int, dev) -> dict:
+    """Step ``ci``'s order as the plain version reads it, local to the
+    step: the one-weight pieces (first item, items, slot), the groups of
+    the other pieces (start and length in the step's lists, slot; the
+    lists as step-local items), and the weight entries (first slot,
+    slots), with the longest run per lane of each sum."""
+    o = lt.host[ci]
+    ps, plen, pg0 = o["pc_start"], o["pc_len"], o["pc_g0"]
+    ng = np.diff(np.append(pg0, len(o["gr_len"])))
+    one = ng == 1
+    g_pc = np.repeat(np.arange(len(ps)), ng)
+    mg = np.flatnonzero(~one[g_pc])
+    many = np.flatnonzero(~one)
+    lst = o["perm"] + np.repeat(ps[many], plen[many])
+    nb = o["n_big"]
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.int64), device=dev)
+
+    def segs(starts, lens, width):
+        return (t(starts), t(lens),
+                int(-(-lens.max() // width)) if len(lens) else 0)
+
+    return dict(
+        one=segs(ps[one], plen[one], TILE_ROWS) +
+        (t(o["gr_slot"][pg0[one]]),),
+        many=segs(o["pc_perm"][g_pc[mg]] + o["gr_off"][mg],
+                  o["gr_len"][mg], WARP) + (t(o["gr_slot"][mg]), t(lst)),
+        big=segs(o["wt_p0"][:nb], o["wt_np"][:nb], SUM_WIDTH),
+        small=segs(o["wt_p0"][nb:], o["wt_np"][nb:], WARP),
+        n_g=len(o["gr_len"]))
+
+
+def _weight_sums(lt: LearnTables, ci: int, grad: torch.Tensor,
+                 inc: torch.Tensor):
+    """Per weight of step ``ci`` (``wt_wid`` order): the sum of its
+    items' gradients and their count, added in the order of the step and
+    sum kernels. The step kernel leaves one partial per (piece, weight):
+    a piece of one weight is summed over TILE_ROWS lanes in item order,
+    any other piece per weight over WARP lanes in the order of its list
+    (:func:`_tree_sums`). The sum kernel adds each weight's partials, in
+    slot order, over SUM_WIDTH lanes when it has more than SUM_WIDTH of
+    them, otherwise over WARP lanes. Explicit elementwise adds only:
+    index_add_ and sum leave the order open."""
+    dev = grad.device
+    if ci not in lt._plain:
+        lt._plain[ci] = _plain_order(lt, ci, dev)
+    o = lt._plain[ci]
+    part_g = torch.zeros(o["n_g"], dtype=torch.float32, device=dev)
+    part_n = torch.zeros(o["n_g"], dtype=torch.int32, device=dev)
+    *seg, slot = o["one"]
+    part_g[slot], part_n[slot] = _tree_sums(grad, inc, *seg, TILE_ROWS)
+    *seg, slot, lst = o["many"]
+    part_g[slot], part_n[slot] = _tree_sums(grad, inc, *seg, WARP, lst)
+    big = _tree_sums(part_g, part_n, *o["big"], SUM_WIDTH)
+    small = _tree_sums(part_g, part_n, *o["small"], WARP)
+    return torch.cat((big[0], small[0])), torch.cat((big[1], small[1]))
 
 
 def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                        xe: torch.Tensor, w: torch.Tensor, seed: int,
                        epoch: int, hs: LearnStep, send=None,
                        send_e=None, ext_p=None, ext_e=None) -> bool:
-    """The step and reduce launches of one learn step on the current
-    stream; returns False, launching nothing, for a step with no rows.
-    A launch with no chunks to work on is skipped and not counted. A
+    """The step launch of one learn step on the current stream (both
+    chains' draws, and each tile's gradient sums into the partial
+    slots); returns False, launching nothing, for a step with no rows. A
     conflicting step reads from snapshots of the chains. ``ext_p`` /
     ``ext_e`` (V, K'), of one width, add external potentials to the
     free / clamped chain before the draws."""
@@ -1119,44 +1276,43 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
     if not t.ptrs or not lt.ptrs:
         raise ValueError("learn tables on %s were not built for the kernel"
                          % t.device)
-    lib, p = _kernel_lib("itemgrid_learn"), lt.ptrs
-    stream = _stream(t.device)
+    p = lt.ptrs
     xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
-    _raise_if(lib.nsx_learn_step(
+    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_step(
         *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
-        _ptr(xer), p["item_g"], p["item_inc"], send_p, send_e_p, ext_pp,
-        ext_ep, t.row0[ci], t.n_rows[ci], t.kmax, seed,
-        salt16_of(epoch, ci), int(hs.learn_non_evidence), kext, stream),
-        "learn step kernel")
+        _ptr(xer), send_p, send_e_p, ext_pp, ext_ep,
+        *(p[k] for k in _ORDER_FIELDS), t.row0[ci], lt.tile0[ci],
+        lt.n_tiles[ci], TILE_ROWS, TILE_ITEMS, lt.smem_items[ci], t.kmax,
+        seed, salt16_of(epoch, ci), int(hs.learn_non_evidence), kext,
+        _stream(t.device)), "learn step kernel")
     LEARN_LAUNCHES += 1
     EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
-    if lt.n_ch[ci]:
-        _raise_if(lib.nsx_learn_reduce(
-            p["red_item"], p["ch_start"], p["ch_len"], p["item_g"],
-            p["item_inc"], p["chunk_g"], p["chunk_n"], lt.ch0[ci],
-            lt.n_ch[ci], stream), "learn reduce kernel")
-        LEARN_LAUNCHES += 1
     return True
+
+
+def _sum_ptrs(lt: LearnTables) -> tuple:
+    """The weight-sum kernel's tables: weight entries and partials."""
+    p = lt.ptrs
+    return (p["wt_wid"], p["wt_p0"], p["wt_np"], p["part_g"], p["part_n"])
 
 
 def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
                   xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
                   hs: LearnStep, ext_p=None, ext_e=None) -> None:
-    """The three CUDA launches of one learn step on the current stream;
-    a launch with no rows, chunks or weights to work on is skipped and
-    not counted."""
+    """The two CUDA launches of one learn step on the current stream,
+    step and sum; a launch with no rows or weights to work on is skipped
+    and not counted."""
     global LEARN_LAUNCHES
     if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs,
                               ext_p=ext_p, ext_e=ext_e) or \
             not lt.n_wt[ci]:
         return
-    p = lt.ptrs
-    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_update(
-        p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"],
-        p["chunk_n"], p["w_fixed"], _ptr(w), lt.wt0[ci], lt.n_wt[ci],
-        int(hs.mean), hs.regularization, hs.step, hs.shrink, hs.l1d,
-        hs.thresh, seed, _coin_salt(epoch, ci),
-        _stream(lt.sweep.device)), "learn update kernel")
+    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_sum(
+        *_sum_ptrs(lt), lt.ptrs["w_fixed"], _ptr(w), lt.wt0[ci],
+        lt.n_big[ci], lt.n_wt[ci], SUM_WIDTH, int(hs.mean),
+        hs.regularization, hs.step, hs.shrink, hs.l1d, hs.thresh, seed,
+        _coin_salt(epoch, ci), _stream(lt.sweep.device)),
+        "learn sum kernel")
     LEARN_LAUNCHES += 1
 
 
@@ -1172,8 +1328,9 @@ def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
     receive the rows' values, and ``part`` (2W,) int32 receives the
     shard's dense per-weight (gradient sum as float32 bits, count),
     zero for the weights it does not touch. CPU tensors run the plain
-    version; CUDA tensors launch the step, reduce and partial kernels
-    (errors raise). :func:`learn_apply` sums the shards' partials."""
+    version; CUDA tensors launch the step kernel and the sum kernel with
+    its dense epilogue (errors raise). :func:`learn_apply` sums the
+    shards' partials."""
     W = lt.w_fixed.numel()
     if x.device.type == "cpu":
         learn_color_partial_reference(lt, ci, x, xe, w, seed, epoch, hs,
@@ -1186,13 +1343,11 @@ def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
     _check("part", part, torch.int32, lt.sweep.device, (2 * W,))
     _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs, send, send_e,
                        ext_p, ext_e)
-    p = lt.ptrs
     has_wt = lt.sweep.n_rows[ci] > 0 and lt.n_wt[ci] > 0
     _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_partial(
-        p["wt_wid"], p["wt_ch0"], p["wt_nch"], p["chunk_g"], p["chunk_n"],
-        _ptr(part), _ptr(part[W:]), lt.wt0[ci],
-        lt.n_wt[ci] if has_wt else 0, W, _stream(part.device)),
-        "learn partial kernel")
+        *_sum_ptrs(lt), _ptr(part), _ptr(part[W:]), lt.wt0[ci],
+        lt.n_big[ci] if has_wt else 0, lt.n_wt[ci] if has_wt else 0, W,
+        SUM_WIDTH, _stream(part.device)), "learn partial kernel")
     LEARN_LAUNCHES += int(has_wt)
 
 

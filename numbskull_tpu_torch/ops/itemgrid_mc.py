@@ -17,8 +17,9 @@ replica of the chains. Per (epoch, color):
 2. the buffers move to every other shard, and ``unpack``
    (``csrc/itemgrid_exchange.cu``) scatters them into each replica at
    the senders' rows;
-3. in learning (``csrc/itemgrid_learn.cu``), each shard's step, reduce
-   and partial kernels leave its dense per-weight (gradient sum, count)
+3. in learning (``csrc/itemgrid_learn.cu``), each shard's step kernel
+   and the sum kernel's dense epilogue leave its per-weight (gradient
+   sum, count)
    in the buffer beside both chains' rows, and after the transfer the
    apply kernel adds the shards' partials in shard order 0..n_g-1 from
    0.0 and updates the weights, the same update on every shard.

@@ -27,6 +27,7 @@ from numbskull_tpu.ops.gibbs import LearnParams as JaxLearnParams
 from numbskull_tpu_torch.compile import compile_graph as port_compile_graph
 from numbskull_tpu_torch.convert import compiled_graph_from_reference
 from numbskull_tpu_torch.models import ising_grid as port_ising_grid
+from numbskull_tpu_torch.models import lf_model as port_lf_model
 from numbskull_tpu_torch.ops import itemgrid as pig
 from numbskull_tpu_torch.ops.gibbs import LearnParams
 from test_torch_itemgrid import schedule_from_jax_plan
@@ -227,62 +228,231 @@ def test_fma32_is_correctly_rounded():
     np.testing.assert_array_equal(got, want)
 
 
-def test_weight_sums_follow_the_kernel_order():
-    """_weight_sums (the plain version of the reduce and update
-    kernels' order) against a sequential float32 replay of that order,
-    on non-dyadic gradients over 3 weights and more than one chunk."""
-    w, v, f, fm, dm, _ = coin_model(1500, evidence=True, seed=4)
+def _replay_lanes(vals: np.ndarray, width: int) -> np.float32:
+    """A sequential float32 replay of one sum of the learn kernels: lane
+    l adds vals[l], vals[l + width], ... in order from 0.0, then the
+    lane sums halve pairwise (lane l adds lane l + h, h = width / 2, ...,
+    1)."""
+    lanes = np.zeros(width, np.float32)
+    for j in range(0, len(vals), width):
+        part = np.asarray(vals[j:j + width], np.float32)
+        lanes[:len(part)] = lanes[:len(part)] + part
+    h = width // 2
+    while h:
+        lanes = lanes[:h] + lanes[h:2 * h]
+        h //= 2
+    return lanes[0]
+
+
+def _replay_weight_sums(o: dict, g: np.ndarray, inc: np.ndarray):
+    """The documented order of one step, item by item from its local
+    order tables ``o``: every piece of one weight over TILE_ROWS lanes in
+    item order, every other piece per weight over WARP lanes in the
+    order of its list, each into its slot; then each weight's slots in
+    slot order over SUM_WIDTH lanes when it has more than SUM_WIDTH,
+    otherwise WARP lanes."""
+    n_g = len(o["gr_len"])
+    part = np.zeros(n_g, np.float32)
+    cnt = np.zeros(n_g, np.int64)
+    ends = np.append(o["pc_g0"][1:], n_g)
+    for k, (s, ln) in enumerate(zip(o["pc_start"], o["pc_len"])):
+        groups = range(o["pc_g0"][k], ends[k])
+        for q in groups:
+            if len(groups) == 1:
+                ids = s + np.arange(ln)
+                width = pig.TILE_ROWS
+            else:
+                a = o["pc_perm"][k] + o["gr_off"][q]
+                ids = s + o["perm"][a:a + o["gr_len"][q]]
+                width = pig.WARP
+            part[o["gr_slot"][q]] = _replay_lanes(g[ids], width)
+            cnt[o["gr_slot"][q]] = inc[ids].sum()
+    sums, counts = [], []
+    for p0, n in zip(o["wt_p0"], o["wt_np"]):
+        width = pig.SUM_WIDTH if n > pig.SUM_WIDTH else pig.WARP
+        sums.append(_replay_lanes(part[p0:p0 + n], width))
+        counts.append(int(cnt[p0:p0 + n].sum()))
+    return np.asarray(sums, np.float32), np.asarray(counts)
+
+
+@pytest.mark.parametrize("copies", [1500, 140000])
+def test_weight_sums_follow_the_kernel_order(copies):
+    """_weight_sums (the plain version of the step and sum kernels'
+    order) against a sequential float32 replay of that order, on
+    non-dyadic gradients: coin graphs (3 weights, every tile holding two
+    of them, 12 tiles per weight and color at 1500 copies, 1094 at
+    140,000, where each weight's sum takes a block of SUM_WIDTH lanes)."""
+    w, v, f, fm, dm, _ = coin_model(copies, evidence=True, seed=4)
     cg = port_compile_graph(w, v, f, fm, domain_mask=dm)
-    eng = pig.ItemGridEngine(cg, device="cpu")
-    lt = eng.learn_tables()
+    lt = pig.ItemGridEngine(cg, device="cpu").learn_tables()
     rng = np.random.default_rng(2)
     for ci in range(lt.sweep.n_steps):
-        lo = lt.sweep.item0[ci]
+        o = lt.host[ci]
         n_items = len(lt.sweep.item_index[ci])
+        assert lt.n_wt[ci] == 2 and (o["wt_np"] > 1).all()
+        assert lt.n_big[ci] == (2 if copies > pig.SUM_WIDTH *
+                                pig.TILE_ROWS else 0)
+        assert (o["pc_perm"] >= 0).all()      # every tile: 2 weights
         g = rng.standard_normal(n_items).astype(np.float32) / 3
         inc = rng.integers(0, 2, n_items).astype(np.int32)
         gs, ns = pig._weight_sums(lt, ci, torch.as_tensor(g),
                                   torch.as_tensor(inc))
-        h = lt.host
-        a, m = lt.wt0[ci], lt.n_wt[ci]
-        assert m > 0 and h["wt_nch"][a:a + m].max() > 1
-        for q in range(m):
-            total, count = None, 0
-            for c in range(h["wt_ch0"][a + q],
-                           h["wt_ch0"][a + q] + h["wt_nch"][a + q]):
-                s, ln = h["ch_start"][c], h["ch_len"][c]
-                vals = np.zeros(pig.RED_CHUNK, np.float32)
-                ids = h["red_item"][s:s + ln] - lo
-                vals[:ln] = g[ids]
-                count += int(inc[ids].sum())
-                lanes = np.zeros(32, np.float32)
-                for j in range(32):
-                    lanes = (lanes + vals[j * 32:(j + 1) * 32]).astype(
-                        np.float32)
-                hh = 16
-                while hh:
-                    lanes = (lanes[:hh] + lanes[hh:2 * hh]).astype(np.float32)
-                    hh //= 2
-                total = lanes[0] if total is None else \
-                    np.float32(total + lanes[0])
-            assert gs[q].item() == total and ns[q].item() == count
+        want_g, want_n = _replay_weight_sums(o, g, inc)
+        np.testing.assert_array_equal(gs.numpy().view(np.int32),
+                                      want_g.view(np.int32))
+        np.testing.assert_array_equal(ns.numpy(), want_n)
 
 
 def test_learn_tables_cover_every_item_once():
-    cg = compiled_graph_from_reference(dataclasses.asdict(_voting10()))
-    lt = pig.ItemGridEngine(cg, device="cpu").learn_tables()
-    t, h = lt.sweep, lt.host
+    """The order tables of the voting graph (one weight) and of the LF
+    graph (several weights per tile): tiles cover each step's rows in
+    order within the row and item budgets, every item lies in exactly
+    one (piece, weight) group whose items all carry that weight, and the
+    slots run weight-major with pieces in row order."""
+    several = 0
+    for model in (_voting10, _lf_card3):
+        cg = compiled_graph_from_reference(dataclasses.asdict(model()))
+        several += _check_order_tables(
+            pig.ItemGridEngine(cg, device="cpu").learn_tables())
+    assert several > 0
+
+
+def _check_order_tables(lt) -> int:
+    """test_learn_tables_cover_every_item_once on one graph's tables;
+    returns the pieces that hold more than one weight."""
+    t = lt.sweep
     assert set(t.map_codes) == {pig.MAPS.index("row")}
     assert set(t.draw_codes) == {pig.DRAWS.index("cdf")}
     n_items = t.item0[-1] + len(t.item_index[-1])
-    assert sorted(h["red_item"]) == list(range(n_items))
-    wid = t.it_wid.numpy()
-    for ci in range(t.n_steps):
-        for c in range(lt.ch0[ci], lt.ch0[ci] + lt.n_ch[ci]):
-            s, ln = h["ch_start"][c], h["ch_len"][c]
-            assert 0 < ln <= pig.RED_CHUNK
-            assert len(set(wid[h["red_item"][s:s + ln]])) == 1
     assert lt.it_fv.dtype == torch.float32 and len(lt.it_fv) == n_items
+    wid = t.it_wid.numpy()
+    row_item = t.row_item.numpy()
+    tl_r0 = lt.tl_r0.numpy()
+    assert tl_r0[-1] == sum(t.n_rows)
+    several = 0
+    for ci in range(t.n_steps):
+        o, lo = lt.host[ci], t.item0[ci]
+        rows = np.append(o["tl_r0"], t.n_rows[ci])
+        assert (np.diff(rows) > 0).all() and rows[0] == 0
+        assert (np.diff(rows) <= pig.TILE_ROWS).all()
+        r = t.row0[ci] + rows
+        assert (row_item[r[1:]] - row_item[r[:-1]] <= pig.TILE_ITEMS).all()
+        np.testing.assert_array_equal(
+            tl_r0[lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]], r[:-1])
+        seen = np.zeros(len(t.item_index[ci]), np.int64)
+        key = []                     # (weight, piece) of each slot
+        ends = np.append(o["pc_g0"][1:], len(o["gr_len"]))
+        for k, (s, ln) in enumerate(zip(o["pc_start"], o["pc_len"])):
+            groups = range(o["pc_g0"][k], ends[k])
+            several += len(groups) > 1
+            for q in groups:
+                if len(groups) == 1:
+                    ids = s + np.arange(ln)
+                else:
+                    a = o["pc_perm"][k] + o["gr_off"][q]
+                    ids = s + o["perm"][a:a + o["gr_len"][q]]
+                    assert (np.diff(ids) > 0).all()    # item order
+                assert len(set(wid[lo + ids])) == 1
+                seen[ids] += 1
+                key.append((o["gr_slot"][q], wid[lo + ids[0]], k))
+        assert (seen == 1).all()
+        key.sort()
+        assert [s for s, _, _ in key] == list(range(len(key)))
+        assert [(w_, k) for _, w_, k in key] == sorted((w_, k) for _, w_, k
+                                                       in key)
+        for p0, n, w_ in zip(o["wt_p0"], o["wt_np"], o["wt_wid"]):
+            assert {key[s][1] for s in range(p0, p0 + n)} == {w_}
+        assert sum(o["wt_np"]) == len(key)
+    return several
+
+
+def _star(n_leaves: int, seed: int):
+    """One variable with ``n_leaves`` EQUAL factors to leaves of its own,
+    alternating between two learnable weights, with non-dyadic
+    featureValues and 30 % evidence: the centre's row holds n_leaves
+    items, more than a tile's budget when n_leaves > TILE_ITEMS."""
+    from numbskull_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    n = n_leaves + 1
+    v = T.new_variables(n)
+    v["isEvidence"] = (rng.random(n) < 0.3).astype(np.int8)
+    v["initialValue"] = rng.integers(0, 2, n)
+    v["cardinality"] = 2
+    w = T.new_weights(2)
+    w["isFixed"] = False
+    w["initialValue"] = (0.1, -0.2)
+    f = T.new_factors(n_leaves)
+    f["factorFunction"] = T.FUNC_EQUAL
+    f["weightId"] = np.arange(n_leaves) % 2
+    f["featureValue"] = rng.uniform(0.3, 1.7, n_leaves)
+    f["arity"] = 2
+    f["ftv_offset"] = 2 * np.arange(n_leaves)
+    fm = T.new_fmap(2 * n_leaves)
+    fm["vid"][0::2] = 0
+    fm["vid"][1::2] = np.arange(1, n)
+    return port_compile_graph(w, v, f, fm)
+
+
+def test_oversized_row_sums_in_pieces():
+    """A row with more items than the tile budget is a tile of its own,
+    summed in pieces of TILE_ITEMS items: its weight sums equal the
+    replay of that order bit for bit and a float64 sum within float32
+    rounding, and learning runs through it."""
+    cg = _star(5000, 3)
+    eng = pig.ItemGridEngine(cg, device="cpu")
+    lt = eng.learn_tables()
+    rng = np.random.default_rng(4)
+    for ci in range(lt.sweep.n_steps):
+        o = lt.host[ci]
+        n_items = len(lt.sweep.item_index[ci])
+        g = (rng.standard_normal(n_items) / 3).astype(np.float32)
+        inc = rng.integers(0, 2, n_items).astype(np.int32)
+        gs, ns = pig._weight_sums(lt, ci, torch.as_tensor(g),
+                                  torch.as_tensor(inc))
+        want_g, want_n = _replay_weight_sums(o, g, inc)
+        np.testing.assert_array_equal(gs.numpy().view(np.int32),
+                                      want_g.view(np.int32))
+        np.testing.assert_array_equal(ns.numpy(), want_n)
+        wid = lt.sweep.it_wid.numpy()[lt.sweep.item0[ci]:][:n_items]
+        for q, w_ in enumerate(o["wt_wid"]):
+            sel = wid == w_
+            exact = g[sel].astype(np.float64).sum()
+            # each sum is at most (entries per lane + 5 halvings) adds
+            # deep, twice (pieces, then the weight's partials)
+            depth = 2 * (-(-int(sel.sum()) // pig.WARP) + 5)
+            tol = depth * 2.0 ** -24 * np.abs(g[sel]).astype(
+                np.float64).sum()
+            assert abs(float(gs[q]) - exact) <= tol
+            assert int(ns[q]) == int(inc[sel].sum())
+    centre = [ci for ci in range(lt.sweep.n_steps)
+              if lt.sweep.n_rows[ci] == 1]
+    assert len(centre) == 1
+    o = lt.host[centre[0]]
+    assert lt.n_tiles[centre[0]] == 1 and lt.smem_items[centre[0]] == \
+        pig.TILE_ITEMS
+    np.testing.assert_array_equal(o["pc_len"], [pig.TILE_ITEMS,
+                                                5000 - pig.TILE_ITEMS])
+    w1, x1, xe1 = eng.learn(5, 1, 3, 0.05, 0.98)
+    assert not torch.equal(w1, torch.as_tensor(cg.weight_init,
+                                               dtype=torch.float32))
+
+
+def test_learning_is_deterministic_with_non_dyadic_feature_values():
+    """Two runs of the plain learning from one seed, with non-dyadic
+    featureValues (sums that round), give the same weight bits."""
+    w, v, f, fm, dm, _ = port_lf_model(0.5, [0.9, 0.6, 0.3, 0.8],
+                                       copies=400, seed=4)
+    f["featureValue"] = np.random.default_rng(5).uniform(0.3, 1.7, len(f))
+    cg = port_compile_graph(w, v, f, fm, domain_mask=dm)
+    lp = LearnParams(regularization=2, reg_param=0.01,
+                     learn_non_evidence=True)
+    runs = [pig.ItemGridEngine(cg, device="cpu").learn(3, 2, 6, 0.05, 0.98,
+                                                       lp)
+            for _ in range(2)]
+    w0 = torch.as_tensor(cg.weight_init, dtype=torch.float32)
+    assert not torch.equal(runs[0][0], w0)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_max_colors_marks_conflicting_steps():
