@@ -17,7 +17,11 @@ Phases (each one that fails exits non-zero; nothing is retried):
    through ``color_step_reference``, under the port's own schedule and
    under one that swaps every map and draw (so `row`, `tile`, `cdf`,
    `vec` and `sigmoid2` all run), and an Ising 64x64 compiled with
-   max_colors=1 (one color whose rows read each other). Dyadic weights
+   max_colors=1 (one color whose rows read each other). Then the edges of
+   the item kernel (kmax 2) under every map and draw: a star whose
+   centre row holds 5000 items (more than a block's shared-memory chunk;
+   its color is a one-row step) and an Ising 3x5 with two variables of
+   cardinality 1 (steps of fewer rows than one tile). Dyadic weights
    make potential sums exact in any order, so values and counts must be
    bit-equal. Then the coin model's marginals on the card against the
    exact joint.
@@ -43,7 +47,9 @@ Phases (each one that fails exits non-zero; nothing is retried):
    the engine asked for must be counted, and the kernel's launch count
    must be (500 + 50) x colors. Then the kernel is held bit for bit
    against the plain version on the CLI's own tables (2 burn-in plus 3
-   tallied epochs, 524,288 rows per launch).
+   tallied epochs, 524,288 rows per launch). Phases 3, 5, 7, 8 and 9
+   print the sweep's device time per color (``torch.profiler``) and its
+   kernels' registers and local memory.
 4. Main path, learning: the coin graph with 200,000 copies (400,000
    variables, 600,000 factors, evidence drawn from the exact joint of
    weights (0.8, -0.5, 0.4)) as DeepDive files, then ``main`` with
@@ -130,11 +136,14 @@ when no CUDA device is visible or the port's package is not beside this
 script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
 ``python3 chip_smoke.py bsp`` phases 1 and 9, ``python3 chip_smoke.py
 gather`` phases 1 and 10, ``python3 chip_smoke.py learn`` phases 1, 2
-(learning), 4, 5 (learning and LF inference) and 7.
+(learning), 4, 5 (learning and LF inference) and 7, ``python3
+chip_smoke.py sweep`` phases 1, 2 (the sweep), 3 with the sweep's rates
+on its graph, and 7.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import resource
@@ -150,9 +159,12 @@ DEVICE = "cuda"
 GRID = 1024              # phase 3 Ising side
 COIN_COPIES = 200000     # phase 4 coin graph copies
 LF_COPIES = 200000       # phase 5 LF graph copies
+# the sweep kernels' records carry the design they run
+REDESIGNED = "redesigned: item-parallel at kmax 2, packed tables"
 SWEEP = {"name": "itemgrid_sweep", "route": "cuda",
          "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
-         "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1597"}
+         "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1597",
+         "status": REDESIGNED}
 LEARN = {"name": "itemgrid_learn", "route": "cuda",
          "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
          "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2045"}
@@ -161,20 +173,23 @@ STENCIL = {"name": "stencil_gibbs", "route": "cuda",
            "replaces": "numbskull_tpu/ops/stencil_pallas.py:29"}
 MC_SWEEP = {"name": "itemgrid_mc_sweep", "route": "cuda",
             "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
-            "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3259"}
+            "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3259",
+            "status": REDESIGNED}
 MC_LEARN = {"name": "itemgrid_mc_learn", "route": "cuda",
             "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3348"}
 MC_ONE_COLOR = {"name": "itemgrid_mc_one_color", "route": "cuda",
                 "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
-                "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3478"}
+                "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3478",
+                "status": REDESIGNED}
 EXCHANGE = {"name": "itemgrid_exchange", "route": "cuda",
             "source": "numbskull_tpu_torch/csrc/itemgrid_exchange.cu",
             "replaces": "tests/test_itemgrid_mc.py:112"}
 MC_SHARDS = 4            # phase 8's in-process shard count
 SWEEP_EXT = {"name": "itemgrid_sweep_ext", "route": "cuda",
              "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
-             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1862"}
+             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:1862",
+             "status": REDESIGNED}
 LEARN_EXT = {"name": "itemgrid_learn_ext", "route": "cuda",
              "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
              "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2351"}
@@ -200,8 +215,15 @@ STENCIL_FIXTURES = ((8, 8, 0.4, 0.0, 0, 6), (33, 17, 0.4, 0.0, 2, 6),
                     (19, 24, 0.3, 0.7, 5, 5), (1, 1, 0.4, 0.3, 3, 9),
                     (70000, 3, 0.4, 0.1, 1, 2))
 HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
-# the learn step kernels' names (csrc/itemgrid_learn.cu), in a trace
+# the learn step kernels' and the sweep kernels' names
+# (csrc/itemgrid_learn.cu, csrc/itemgrid_sweep.cu), in a trace
 LEARN_STEP_KERNELS = ("learn_step_kernel", "learn_item_kernel")
+SWEEP_KERNELS = ("sweep_item_kernel", "sweep_color_kernel")
+# the sweep kernels as nsx_itemgrid_sweep_attrs numbers them
+SWEEP_ATTRS = tuple("sweep_item_kernel<%d, %s>" % (lanes, fast)
+                    for fast in ("false", "true")
+                    for lanes in (1, 2, 4, 8, 16, 32)) + tuple(
+    "sweep_color_kernel<%d>" % k for k in (8, 32, 128))
 
 
 def fail(msg: str):
@@ -280,12 +302,49 @@ def phase_device(torch):
         log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
                                else "cached"))
         if info:
-            # the learn kernels' whole report (entry, registers, shared
-            # memory, spills), the others' register and spill lines
+            # the sweep and learn kernels' whole report (entry,
+            # registers, shared memory, spills), the others' register and
+            # spill lines
             for line in info["ptxas"].splitlines():
-                if name == "itemgrid_learn" or "registers" in line or \
-                        "spill" in line:
+                if name in ("itemgrid_sweep", "itemgrid_learn") or \
+                        "registers" in line or "spill" in line:
                     log("    ptxas: " + line.strip())
+    log("  " + sweep_resources())
+
+
+def sweep_resources() -> str:
+    """The sweep kernels' registers and local memory per thread (spills
+    and local arrays) as the loaded module reports them
+    (cudaFuncGetAttributes)."""
+    from numbskull_tpu_torch.ops import itemgrid
+    lib = itemgrid._kernel_lib()
+    out = []
+    for which, name in enumerate(SWEEP_ATTRS):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = lib.nsx_itemgrid_sweep_attrs(which, ctypes.byref(regs),
+                                          ctypes.byref(local))
+        if rc != 0:
+            fail("cudaFuncGetAttributes of %s: CUDA error %d" % (name, rc))
+        out.append("%s %d registers, %d B local" % (name, regs.value,
+                                                    local.value))
+    return "sweep kernels: " + "; ".join(out)
+
+
+def log_sweep(label, by_kernel):
+    """Log the sweep kernels' device time per launch, one launch per
+    color, from a trace's ``by_kernel`` (device_busy), then their
+    registers and local memory; returns {kernel: ms per launch}."""
+    out = {}
+    for name, (calls, us) in sorted(by_kernel.items()):
+        kern = next((k for k in SWEEP_KERNELS if k in name), None)
+        if kern is not None:
+            out[kern] = us / 1e3 / calls
+            log("  %s: %s %d launches in the trace, %.5f ms per color"
+                % (label, kern, calls, out[kern]))
+    if not out:
+        log("  %s: no sweep kernel in the trace" % label)
+    log("  " + sweep_resources())
+    return out
 
 
 def _fixtures():
@@ -320,6 +379,69 @@ def _fixtures():
     assert max(int(np.asarray(c.plans[0].it_arity).max())
                for n, c, _ in out if n.startswith("voting")) == 51
     return out
+
+
+def _edge_fixtures():
+    """The item kernel's edges (kmax 2), with dyadic weights: a star
+    whose centre row holds 5000 EQUAL items (more than a block's
+    SWEEP_CHUNK; its color is a one-row step, the other a step of 5000
+    one-item rows) and an Ising 3x5 with two variables of cardinality 1
+    (two steps of fewer rows than one tile). Then, run under two
+    schedules only (``GROUP_SCHEDULES``), grouped voting at degree 12
+    (items of arity 13, evaluated by 8 lanes each) with each factor type
+    that reads more than one fact of its arguments, and with OR and
+    EQUAL, and at degree 1 (arity 2, one lane an item) with IMPLY and
+    LINEAR: every item kernel, fast or not."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_grid, voting_grouped
+    n = 5000
+    rng = np.random.default_rng(12)
+    v = T.new_variables(n + 1)
+    v["initialValue"] = rng.integers(0, 2, n + 1)
+    v["cardinality"] = 2
+    w = T.new_weights(2)
+    w["initialValue"] = (0.25, -0.5)
+    w["isFixed"] = True
+    f = T.new_factors(n)
+    f["factorFunction"] = T.FUNC_EQUAL
+    f["weightId"] = np.arange(n) % 2
+    f["featureValue"] = 1.0
+    f["arity"] = 2
+    f["ftv_offset"] = 2 * np.arange(n)
+    fm = T.new_fmap(2 * n)
+    fm["vid"][0::2] = 0
+    fm["vid"][1::2] = np.arange(1, n + 1)
+    out = [("star5000", compile_graph(w, v, f, fm))]
+    w, v, f, fm, dm, _ = ising_grid(3, 5, weight=0.5)
+    v["cardinality"][[0, 7]] = 1
+    v["initialValue"] = rng.integers(0, 2, 15) % v["cardinality"]
+    out.append(("ising3x5_card1", compile_graph(w, v, f, fm,
+                                                domain_mask=dm)))
+    for func, degree in (("IMPLY_NATURAL", 12), ("IMPLY_MLN", 12),
+                         ("LINEAR", 12), ("RATIO", 12), ("LOGICAL", 12),
+                         ("OR", 12), ("EQUAL", 12), ("IMPLY_NATURAL", 1),
+                         ("LINEAR", 1)):
+        w, v, f, fm, dm, _ = voting_grouped(
+            1300 if degree > 1 else 4000, degree, weight=0.5,
+            func=T.FACTORS[func], evidence_frac=0.1, seed=len(func))
+        out.append(("voting%d_%s" % (degree, func.lower()),
+                    compile_graph(w, v, f, fm, domain_mask=dm)))
+    return out
+
+
+GROUP_SCHEDULES = ("row/cdf", "tile/sigmoid2")
+
+
+def _every_map_and_draw(schedule):
+    """One schedule per (map, draw): every step with that map and draw."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    n = len(schedule.colors)
+    return [("%s/%s" % (m, d), pig.Schedule(
+        colors=schedule.colors, maps=(m,) * n, draws=(d,) * n,
+        upos=schedule.upos)) for m in pig.MAPS for d in pig.DRAWS]
 
 
 def _swapped(schedule):
@@ -365,7 +487,7 @@ def check_equal(torch, name, label, eng, **kw):
     """compare(), logged; fails on any unequal draw or count. Returns
     the max abs difference (0)."""
     eq, tot, err = compare(torch, eng, **kw)
-    log("  %-22s %-8s kmax %3d colors %2d: %d of %d draws equal, "
+    log("  %-22s %-13s kmax %3d colors %2d: %d of %d draws equal, "
         "max |diff| %d" % (name, label, eng.cg.kmax, eng.cg.n_colors, eq,
                            tot, err))
     if eq != tot or err != 0:
@@ -397,6 +519,22 @@ def phase_compare(torch):
         fail("max_colors=1 Ising: the one color is not marked conflicting")
     worst = max(worst, check_equal(torch, "ising64_max_colors1", "own",
                                    eng))
+    for name, cg in _edge_fixtures():
+        scheds = _every_map_and_draw(pig.default_schedule(cg))
+        kw = {}
+        if name.startswith("voting"):
+            scheds = [s for s in scheds if s[0] in GROUP_SCHEDULES]
+            kw = dict(burn=2, epochs=5)
+        for i, (label, sched) in enumerate(scheds):
+            eng = pig.ItemGridEngine(cg, device=DEVICE, schedule=sched)
+            t = eng.tables
+            if i == 0:
+                log("  %s: steps %d, rows %d..%d, longest row %d items, "
+                    "(tile rows, lanes) %s" % (
+                        name, t.n_steps, min(t.n_rows), max(t.n_rows),
+                        int(t.row_item.diff().max()),
+                        sorted(set(t.item_shape))))
+            worst = max(worst, check_equal(torch, name, label, eng, **kw))
 
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.models import coin_exact_marginal, coin_model
@@ -693,6 +831,9 @@ def phase_main_path(torch, workdir):
         fail("mean marginal %.4f outside (0.4, 0.6)" % mean)
     err = check_equal(torch, "ising1024 (CLI tables)", "own", eng,
                       burn=2, epochs=3)
+    by_kernel = {}
+    device_busy(torch, lambda: eng.run(1, 0, 20), by_kernel)
+    log_sweep("ising1024 (CLI tables), 20 epochs", by_kernel)
     return launches, ns, err
 
 
@@ -847,24 +988,23 @@ def _gathered(torch, t, ci):
     hi = lo + len(t.item_index[ci])
     if hi == lo:
         return 0
-    a0 = int(t.it_arg[lo])
-    a1 = int(t.it_arg[hi - 1]) + int(t.it_arity[hi - 1])
-    vid = t.arg_vid[a0:a1][t.arg_subst[a0:a1] == 0]
-    return int(torch.unique(vid).numel())
+    vid = t.arg_vid[int(t.it_arg[lo]):int(t.it_arg[hi])]
+    return int(torch.unique(vid[vid >= 0]).numel())
 
 
 def sweep_epoch_cost(torch, t):
     """(bytes, operations) of one inference epoch through the sweep
     kernel, from this graph's tables: each step reads its rows (17 B),
-    items (25 B) and arguments (13 B) once, the values it gathers once
-    (4 B each) and the weights once, and writes its rows' values (4 B)
-    and tallies (one int32 read and written); operations count each
-    item's evaluation at each candidate (6 per argument + 12) and each
-    row's draw (6 per candidate + 30, the hash included)."""
+    items (12 B packed; 25 B unpacked) and arguments (8 B packed; 13 B
+    unpacked) once, the values it gathers once (4 B each) and the
+    weights once, and writes its rows' values (4 B) and tallies (one
+    int32 read and written); operations count each item's evaluation at
+    each candidate (6 per argument + 12) and each row's draw (6 per
+    candidate + 30, the hash included)."""
     K = t.kmax
     rows = sum(t.n_rows)
-    items, args = int(t.it_ftype.numel()), int(t.arg_vid.numel())
-    nbytes = rows * (17 + 4 + 8) + items * 25 + args * 13 + 4 * t.n_weights
+    items, args = int(t.it_wid.numel()), int(t.arg_vid.numel())
+    nbytes = rows * (17 + 4 + 8) + items * 12 + args * 8 + 4 * t.n_weights
     nbytes += 4 * sum(_gathered(torch, t, ci) for ci in range(t.n_steps))
     ops = K * (6 * args + 12 * items) + rows * (6 * K + 30)
     return nbytes, ops
@@ -872,8 +1012,9 @@ def sweep_epoch_cost(torch, t):
 
 def learn_epoch_cost(torch, lt):
     """(bytes, operations) of one learning epoch, the work's own: each
-    step reads its rows (17 B), items (25 B) and their featureValues
-    (4 B) and arguments (13 B) once, gathers both chains' values once
+    step reads its rows (17 B), items (12 B packed; 25 B unpacked) and
+    their featureValues (4 B) and arguments (8 B packed; 13 B unpacked)
+    once, gathers both chains' values once
     (8 B per distinct variable read) and writes both chains' rows (8 B),
     and the weights are read (with their fixed flags) and written once
     (9 B). No order table of a design is charged. Operations: both
@@ -882,8 +1023,8 @@ def learn_epoch_cost(torch, lt):
     t = lt.sweep
     K = t.kmax
     rows = sum(t.n_rows)
-    items, args = int(t.it_ftype.numel()), int(t.arg_vid.numel())
-    nbytes = rows * (17 + 8) + items * (25 + 4) + args * 13
+    items, args = int(t.it_wid.numel()), int(t.arg_vid.numel())
+    nbytes = rows * (17 + 8) + items * (12 + 4) + args * 8
     nbytes += 8 * sum(_gathered(torch, t, ci) for ci in range(t.n_steps))
     nbytes += 9 * t.n_weights
     ops = 2 * (K * (6 * args + 12 * items) + rows * (6 * K + 30))
@@ -1025,6 +1166,8 @@ def phase_rates(torch, ising_ns, coin_ns, card):
             % (gname, what, "not measured (no device time in the trace)"
                if busy is None else "%.3f" % busy))
         log_kernel_times(by_kernel)
+        if lp is None:
+            log_sweep(gname + ", 50 epochs", by_kernel)
     return result, err_sweep, err_learn
 
 
@@ -1234,6 +1377,8 @@ def phase_hbm(torch, card):
             "included): %s" % (what, per, "not measured" if busy is None
                                else "%.3f" % busy))
         log_kernel_times(by_kernel)
+        if what == "inference":
+            out["sweep_color_ms"] = log_sweep("33.5M, 20 epochs", by_kernel)
     out["err"] = check_equal(torch, "ising33M (hbm)", "own", eng, burn=1,
                              epochs=1)
     torch.cuda.empty_cache()
@@ -1446,6 +1591,8 @@ def phase_mc(torch, card):
             % (n_g, out["run_ms"][n_g], "not measured" if not tot else
                "%.3f" % out["share"][n_g]))
         log_kernel_times(by_kernel)
+        log_sweep("%d shard(s), 20 epochs (a launch per color and shard)"
+                  % n_g, by_kernel)
     out["emu_ms"] = epoch_rate(torch, lambda k: eng.run_emulated(1, 0, k),
                                infer.n_vars, 20, 120)[1]
     out["run_plain_ms"] = epoch_rate(
@@ -1473,9 +1620,11 @@ def phase_mc(torch, card):
     log("  learning, %d shards: device time per kernel over 20 epochs:"
         % MC_SHARDS)
     log_kernel_times(by_kernel)
+    # a warm-up epoch and the best of two a point: the host's noise at one
+    # try can exceed the one epoch between the points
     out["learn_plain_ms"] = epoch_rate(
         torch, lambda k: leng.learn(1, 0, k, step, decay, lp, plain=True),
-        lcg.n_vars, 1, 2, tries=1, warm=False)[1]
+        lcg.n_vars, 1, 3)[1]
     log("  %d shards: run_emulated %.4f ms/epoch, learning %.4f ms/epoch; "
         "plain run %.2f, plain run_emulated %.2f, plain learning %.2f "
         "ms/epoch" % (MC_SHARDS, out["emu_ms"], out["learn_ms"],
@@ -1531,8 +1680,13 @@ def phase_mc(torch, card):
         t_host[which] = min(t_host.get(which, 1e30), ms / reps)
         rows.setdefault(which, []).append(device_rows_us(torch, fn, reps))
     med = {k: median_call_ms(turns, reps) for k, turns in rows.items()}
-    med["plain"] = min(sum(sum(t.values(), [])) for t in rows["plain"]) / \
-        reps / 1e3
+    # the plain version's device time per call, from the turns whose
+    # trace holds its device rows (a trace may drop a whole turn's)
+    plain = [x for x in (sum(sum(t.values(), [])) for t in rows["plain"])
+             if x > 0]
+    if not plain:
+        fail("plain unpack: no device rows in any turn's trace")
+    med["plain"] = min(plain) / reps / 1e3
     out["unpack_ms"], out["unpack_plain_ms"], out["unpack_lib_ms"] = (
         med["kernel"], med["plain"], med["library"])
     out["unpack_cost"] = (12 * n_recv, 0)
@@ -1724,9 +1878,10 @@ def _bsp_infer_case(torch, model, part, mode, out):
         # launches without the table
         e0 = eng.engines[0]
         r["ext_call_ms"] = _kernel_call_ms(
-            torch, lambda: e0.run(1, 0, 20, ext_pot=ext), ("sweep_color",))
+            torch, lambda: e0.run(1, 0, 20, ext_pot=ext), SWEEP_KERNELS)
         r["noext_call_ms"] = _kernel_call_ms(
-            torch, lambda: e0.run(1, 0, 20), ("sweep_color",))
+            torch, lambda: e0.run(1, 0, 20), SWEEP_KERNELS)
+        log("  " + sweep_resources())
         out["sweep_ms"] = min(epoch_rate(
             torch, lambda k: e0.run(1, 0, k, ext_pot=ext), len(v), 20,
             120)[1] for _ in range(2))
@@ -1830,7 +1985,7 @@ def _bsp_learn_case(torch, name, model, part, args, out, rates=False):
     out["learn_plain_ms"] = epoch_rate(
         torch, lambda k: e0.learn(1, 0, k, step, lp=lp, ext_pot=ext,
                                   ext_pot_evid=ext_e, plain=True), len(v),
-        1, 2, tries=1, warm=False)[1]
+        1, 3)[1]
     nb, ops = learn_epoch_cost(torch, e0.learn_tables())
     out["learn_cost"] = (nb + 8 * len(v) * e0.cg.kmax, ops)
     log("  has_ext learning on part 0's tables: %.4f ms per part-epoch "
@@ -2234,6 +2389,44 @@ def learn_record(torch, learns, err, learn, cost, hbm):
     return rec
 
 
+def sweep_phases(torch, card):
+    """The `sweep` mode's phases: 2 (the sweep), 3 with the sweep's
+    epoch-differenced rates on its graph (plain, kernel, kernel, plain),
+    and 7. Returns the arguments of sweep_record."""
+    worst = phase_compare(torch)
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
+        launches, ising_ns, err3 = phase_main_path(torch, work)
+    eng = ising_ns.factorGraphs[0].engine(True)
+    meas = {}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        pts = (2, 12) if which == "plain" else (20, 220)
+        ups, ms = rate(torch, eng, which == "plain", *pts)
+        meas.setdefault(which, []).append((ups, ms))
+        log("  ising1024 infer %-6s %.6g variable updates/s, %.4f ms/epoch "
+            "(epochs %d..%d)" % (which, ups, ms, *pts))
+    cost = sweep_epoch_cost(torch, eng.tables)
+    del ising_ns, eng
+    hbm = phase_hbm(torch, card)
+    return (launches, max(worst, err3, hbm["err"]),
+            {k: max(v) for k, v in meas.items()}, cost, hbm)
+
+
+def sweep_record(launches, err, sweep, cost, hbm):
+    """The kernels-line record of the sweep kernel (TPU kernel #1, and
+    under ``hbm`` #6): launches of phase 3, times on the graph of phase
+    3, the 33.5 M path of phase 7."""
+    rec = dict(SWEEP, launches=launches, max_abs_err=err,
+               ms=sweep["kernel"][1], plain_ms=sweep["plain"][1],
+               library_ms=None)      # no single PyTorch call does this
+    rec["bound_ms"], rec["bound_by"] = bound(*cost)
+    rec["hbm"] = {"serves": "numbskull_tpu/ops/itemgrid_pallas.py:3595",
+                  "launches": hbm["launches"], "ms": hbm["infer_kernel"][1],
+                  "plain_ms": hbm["infer_plain"][1],
+                  "bound_ms": bound(*hbm["sweep_cost"])[0],
+                  "ms_per_color": hbm["sweep_color_ms"]}
+    return rec
+
+
 def main():
     torch = setup()
     card = card_line()
@@ -2249,6 +2442,9 @@ def main():
         return
     if sys.argv[1:] == ["learn"]:     # phases 1, 2 (learning), 4, 5, 7
         finish(torch, card, [learn_record(torch, *learn_phases(torch, card))])
+        return
+    if sys.argv[1:] == ["sweep"]:     # phases 1, 2 (the sweep), 3, 7
+        finish(torch, card, [sweep_record(*sweep_phases(torch, card))])
         return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
@@ -2267,26 +2463,17 @@ def main():
     mcr = phase_mc(torch, card)
     bspr = phase_bsp(torch, card)
     gatherr = phase_gather(torch, card)
-    sweep = rates[("ising1024", "infer")]
     grid = lattice[LATTICES[0]]
     records = [
-        dict(SWEEP, launches=launches, max_abs_err=max(worst, err3, err5,
-                                                       hbm["err"]),
-             ms=sweep["kernel"][1], plain_ms=sweep["plain"][1]),
+        sweep_record(launches, max(worst, err3, err5, hbm["err"]),
+                     rates[("ising1024", "infer")], sweep_cost, hbm),
         learn_record(torch, learns, max(worst_l, err4, err5_l),
                      rates[("coin400k", "learn")], learn_cost, hbm),
         dict(STENCIL, launches=stencil_launches, max_abs_err=worst_s,
-             ms=grid["kernel"][1], plain_ms=grid["plain"][1])]
-    for rec, cost in ((records[0], sweep_cost),
-                      (records[2], stencil_epoch_cost(LATTICES[0],
-                                                      LATTICES[0]))):
-        rec["bound_ms"], rec["bound_by"] = bound(*cost)
-        rec["library_ms"] = None      # no single PyTorch call does this
-    records[0]["hbm"] = {
-        "serves": "numbskull_tpu/ops/itemgrid_pallas.py:3595",
-        "launches": hbm["launches"], "ms": hbm["infer_kernel"][1],
-        "plain_ms": hbm["infer_plain"][1],
-        "bound_ms": bound(*hbm["sweep_cost"])[0]}
+             ms=grid["kernel"][1], plain_ms=grid["plain"][1],
+             library_ms=None)]     # no single PyTorch call does this
+    records[2]["bound_ms"], records[2]["bound_by"] = bound(
+        *stencil_epoch_cost(LATTICES[0], LATTICES[0]))
     records += mc_records(mcr) + bsp_records(bspr) + \
         gather_records(gatherr)
     finish(torch, card, records)

@@ -1,7 +1,8 @@
 // Device code shared by the port's itemgrid kernels (itemgrid_sweep.cu,
-// itemgrid_learn.cu): the factor semantics, one item's evaluation, the
-// counter hash of the TPU kernels' software PRNG, and the two draws that
-// reproduce _draw and _draw_vec of numbskull_tpu/ops/itemgrid_pallas.py.
+// itemgrid_learn.cu): the packed tables and their accessors, the factor
+// semantics, one item's evaluation, the counter hash of the TPU kernels'
+// software PRNG, and the two draws that reproduce _draw and _draw_vec of
+// numbskull_tpu/ops/itemgrid_pallas.py.
 // Sums use __fadd_rn / __fmul_rn so the compiler cannot contract them
 // into FMAs, and exponentials use expf (never __expf or fast math), the
 // function torch.exp calls on the GPU.
@@ -32,24 +33,63 @@ enum : int {
 enum : int { ROW_UPDATE = 1, ROW_TALLY = 2, ROW_CLAMPED = 4,
              ROW_EVIDENCE = 8 };
 
+// The packed tables of ops/itemgrid.build_tables: rows in five arrays;
+// items in three int32 arrays (12 B an item: the CSR offset of the first
+// argument, the weight, and one word of ftype, dense and the two slots);
+// arguments in two (8 B: the variable, ~vid for the row's own, and one
+// word of eq and card). The kernels read them only through the
+// accessors below.
 struct Tables {
   const int32_t* row_vid;
   const int32_t* row_card;
   const int32_t* row_upos;
   const int8_t* row_flags;
-  const int32_t* row_item;   // (n_rows_total + 1) CSR offsets
-  const int32_t* it_ftype;
+  const int32_t* row_item;   // (n_rows_total + 1) CSR offsets into items
+  const int32_t* it_arg;     // (I + 1) CSR offsets into the arguments
   const int32_t* it_wid;
-  const int32_t* it_arity;
-  const int32_t* it_arg;     // first argument of the item
-  const int8_t* it_dense;
-  const int32_t* it_d1;
-  const int32_t* it_d2;
-  const int32_t* arg_vid;
-  const int32_t* arg_eq;
-  const int32_t* arg_card;
-  const int8_t* arg_subst;
+  const int32_t* it_meta;    // ftype + 1 | dense << 7 | d1 << 8 | d2 << 16
+  const int32_t* arg_vid;    // variable read; ~vid: the row's own
+  const int32_t* arg_ec;     // eq << 16 | card
 };
+
+// an item's first argument, its arity, its weight and its packed word
+__device__ __forceinline__ int item_arg0(const Tables& t, int it) {
+  return t.it_arg[it];
+}
+__device__ __forceinline__ int item_arity(const Tables& t, int it) {
+  return t.it_arg[it + 1] - t.it_arg[it];
+}
+__device__ __forceinline__ int item_wid(const Tables& t, int it) {
+  return t.it_wid[it];
+}
+__device__ __forceinline__ int item_meta(const Tables& t, int it) {
+  return t.it_meta[it];
+}
+// the fields of a packed item word
+__device__ __forceinline__ int meta_ftype(int m) { return (m & 31) - 1; }
+__device__ __forceinline__ bool meta_dense(int m) { return (m >> 7) & 1; }
+__device__ __forceinline__ int meta_d1(int m) { return (m >> 8) & 255; }
+__device__ __forceinline__ int meta_d2(int m) { return (m >> 16) & 255; }
+__device__ __forceinline__ int item_ftype(const Tables& t, int it) {
+  return meta_ftype(item_meta(t, it));
+}
+
+// argument a: the variable it reads (negative: the row's own), its value
+// with the row's variable at candidate k, its eq and its cardinality
+__device__ __forceinline__ int arg_ref(const Tables& t, int a) {
+  return t.arg_vid[a];
+}
+__device__ __forceinline__ int arg_value(const Tables& t, const int32_t* x,
+                                         int a, int k) {
+  const int v = arg_ref(t, a);
+  return v < 0 ? k : x[v];
+}
+__device__ __forceinline__ int arg_eq(const Tables& t, int a) {
+  return t.arg_ec[a] >> 16;
+}
+__device__ __forceinline__ int arg_card(const Tables& t, int a) {
+  return t.arg_ec[a] & 0xFFFF;
+}
 
 struct ArgStats {
   int n_zero, n_one, n_diff0, n_head_eq, n_body_zero, n_neq_eq, n_eq_eq,
@@ -122,32 +162,25 @@ __device__ float finalize(int ftype, const ArgStats& s) {
   }
 }
 
-// value of argument `a` of an item whose arguments start at `a0`, with
-// the row's own variable at candidate `k`
-__device__ __forceinline__ int arg_value(const Tables& t, const int32_t* x,
-                                         int a0, int a, int k) {
-  return t.arg_subst[a0 + a] ? k : x[t.arg_vid[a0 + a]];
-}
-
 // factor value of one item with the row's variable at candidate k
 __device__ float eval_item(const Tables& t, const int32_t* x, int ftype,
                            int a0, int arity, int k) {
   ArgStats s;
   const int h = arity > 1 ? arity - 1 : 0;
-  s.v0 = arg_value(t, x, a0, 0, k);
-  s.head = arg_value(t, x, a0, h, k);
-  s.head_eq = t.arg_eq[a0 + h];
-  s.v1 = arity > 1 ? arg_value(t, x, a0, 1, k) : 0;
-  s.v2 = arity > 2 ? arg_value(t, x, a0, 2, k) : 0;
-  s.card0 = t.arg_card[a0];
-  s.card1 = arity > 1 ? t.arg_card[a0 + 1] : s.card0;
+  s.v0 = arg_value(t, x, a0, k);
+  s.head = arg_value(t, x, a0 + h, k);
+  s.head_eq = arg_eq(t, a0 + h);
+  s.v1 = arity > 1 ? arg_value(t, x, a0 + 1, k) : 0;
+  s.v2 = arity > 2 ? arg_value(t, x, a0 + 2, k) : 0;
+  s.card0 = arg_card(t, a0);
+  s.card1 = arity > 1 ? arg_card(t, a0 + 1) : s.card0;
   const int us = s.v0 - 1 < 0 ? 0 : (s.v0 - 1 > h ? h : s.v0 - 1);
-  s.ufo_sel = arg_value(t, x, a0, us, k);
+  s.ufo_sel = arg_value(t, x, a0 + us, k);
   s.n_zero = s.n_one = s.n_diff0 = s.n_head_eq = s.n_body_zero = 0;
   s.n_neq_eq = s.n_eq_eq = s.n_body_neq_eq = 0;
   for (int a = 0; a < arity; ++a) {
-    const int v = arg_value(t, x, a0, a, k);
-    const int e = t.arg_eq[a0 + a];
+    const int v = arg_value(t, x, a0 + a, k);
+    const int e = arg_eq(t, a0 + a);
     s.n_zero += v == 0;
     s.n_one += v == 1;
     s.n_diff0 += v != s.v0;

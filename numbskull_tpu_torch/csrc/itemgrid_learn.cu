@@ -180,26 +180,26 @@ __device__ __forceinline__ void eval_item2(const Tables& t,
   ArgStats sa, sb;
   const int h = arity > 1 ? arity - 1 : 0;
   auto value = [&](int a, int& va, int& vb) {
-    if (t.arg_subst[a0 + a]) {
+    const int vid = arg_ref(t, a0 + a);
+    if (vid < 0) {
       va = vb = k;
     } else {
-      const int vid = t.arg_vid[a0 + a];
       va = xa[vid];
       vb = xb[vid];
     }
   };
   value(0, sa.v0, sb.v0);
   value(h, sa.head, sb.head);
-  sa.head_eq = sb.head_eq = t.arg_eq[a0 + h];
+  sa.head_eq = sb.head_eq = arg_eq(t, a0 + h);
   sa.v1 = sb.v1 = sa.v2 = sb.v2 = 0;
   if (arity > 1) value(1, sa.v1, sb.v1);
   if (arity > 2) value(2, sa.v2, sb.v2);
-  sa.card0 = sb.card0 = t.arg_card[a0];
-  sa.card1 = sb.card1 = arity > 1 ? t.arg_card[a0 + 1] : sa.card0;
+  sa.card0 = sb.card0 = arg_card(t, a0);
+  sa.card1 = sb.card1 = arity > 1 ? arg_card(t, a0 + 1) : sa.card0;
   const int ua = sa.v0 - 1 < 0 ? 0 : (sa.v0 - 1 > h ? h : sa.v0 - 1);
   const int ub = sb.v0 - 1 < 0 ? 0 : (sb.v0 - 1 > h ? h : sb.v0 - 1);
-  sa.ufo_sel = arg_value(t, xa, a0, ua, k);
-  sb.ufo_sel = arg_value(t, xb, a0, ub, k);
+  sa.ufo_sel = arg_value(t, xa, a0 + ua, k);
+  sb.ufo_sel = arg_value(t, xb, a0 + ub, k);
   sa.n_zero = sa.n_one = sa.n_diff0 = sa.n_head_eq = sa.n_body_zero = 0;
   sa.n_neq_eq = sa.n_eq_eq = sa.n_body_neq_eq = 0;
   sb.n_zero = sb.n_one = sb.n_diff0 = sb.n_head_eq = sb.n_body_zero = 0;
@@ -207,7 +207,7 @@ __device__ __forceinline__ void eval_item2(const Tables& t,
   for (int a = 0; a < arity; ++a) {
     int va, vb;
     value(a, va, vb);
-    const int e = t.arg_eq[a0 + a];
+    const int e = arg_eq(t, a0 + a);
     sa.n_zero += va == 0;
     sb.n_zero += vb == 0;
     sa.n_one += va == 1;
@@ -246,10 +246,10 @@ __device__ __forceinline__ void eval_item2_fast(const Tables& t,
     return;
   }
   auto value = [&](int a, int& va, int& vb) {
-    if (t.arg_subst[a0 + a]) {
+    const int vid = arg_ref(t, a0 + a);
+    if (vid < 0) {
       va = vb = k;
     } else {
-      const int vid = t.arg_vid[a0 + a];
       va = xa[vid];
       vb = xb[vid];
     }
@@ -277,16 +277,17 @@ __device__ __forceinline__ void eval_item2_fast(const Tables& t,
 // eval_item of item `it` at candidate k, its tables read here
 __device__ __forceinline__ float eval_at(const Tables& t, const int32_t* x,
                                       int it, int k) {
-  return eval_item(t, x, t.it_ftype[it], t.it_arg[it], t.it_arity[it], k);
+  return eval_item(t, x, item_ftype(t, it), item_arg0(t, it),
+                   item_arity(t, it), k);
 }
 
 // one item's gradient at the drawn values, evaluated from the tables
 __device__ __forceinline__ float item_grad(const Tables& t,
                                            const LearnStep& p, int it,
                                            int p_val, int e_val) {
-  const int ftype = t.it_ftype[it];
-  const int a0 = t.it_arg[it];
-  const int arity = t.it_arity[it];
+  const int ftype = item_ftype(t, it);
+  const int a0 = item_arg0(t, it);
+  const int arity = item_arity(t, it);
   const float ep = eval_item(t, p.xr, ftype, a0, arity, p_val);
   const float ee = eval_item(t, p.xer, ftype, a0, arity, e_val);
   return __fmul_rn(__fsub_rn(ep, ee), p.it_fv[it]);
@@ -402,12 +403,13 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
       else hi = mid - 1;
     }
     const int it = T0 + j, card = s_card[lo];
-    const int ftype = t.it_ftype[it];
-    const float w = p.weights[t.it_wid[it]];
-    const int a0 = t.it_arg[it];
-    const int arity = t.it_arity[it];
-    const bool dense = t.it_dense[it] != 0;
-    const int d1 = t.it_d1[it], d2 = t.it_d2[it];
+    const int m = item_meta(t, it);
+    const int ftype = meta_ftype(m);
+    const float w = p.weights[item_wid(t, it)];
+    const int a0 = item_arg0(t, it);
+    const int arity = item_arity(t, it);
+    const bool dense = meta_dense(m);
+    const int d1 = meta_d1(m), d2 = meta_d2(m);
     float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -460,7 +462,8 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
       okp = dense ? pv < card : sp;
       oke = dense ? ev < card : se;
     } else {  // a value outside {0, 1}: the slots from the tables
-      const int d1 = t.it_d1[it], d2 = t.it_d2[it];
+      const int m = item_meta(t, it);
+      const int d1 = meta_d1(m), d2 = meta_d2(m);
       hit = d1 == ev || d1 == pv || d2 == ev || d2 == pv;
       okp = static_cast<unsigned>(pv) < 2u &&
             (dense ? pv < card : (pv == d1 || pv == d2));
@@ -526,12 +529,13 @@ __global__ void __launch_bounds__(kTileRows)
       pot_e[k] = 0.0f;
     });
     for (int it = it0; it < it1; ++it) {
-      const int ftype = t.it_ftype[it];
-      const float w = p.weights[t.it_wid[it]];
-      const int a0 = t.it_arg[it];
-      const int arity = t.it_arity[it];
-      const bool dense = t.it_dense[it] != 0;
-      const int d1 = t.it_d1[it], d2 = t.it_d2[it];
+      const int m = item_meta(t, it);
+      const int ftype = meta_ftype(m);
+      const float w = p.weights[item_wid(t, it)];
+      const int a0 = item_arg0(t, it);
+      const int arity = item_arity(t, it);
+      const bool dense = meta_dense(m);
+      const int d1 = meta_d1(m), d2 = meta_d2(m);
       for_k<KMAX>([&](int k) {
         const bool ok = dense ? k < card : (k == d1 || k == d2);
         if (ok) {
@@ -552,10 +556,11 @@ __global__ void __launch_bounds__(kTileRows)
     if (active) {
       const int lo = max(it0, P0), hi = min(it1, P1);
       for (int it = lo; it < hi; ++it) {
-        const int d1 = t.it_d1[it], d2 = t.it_d2[it];
+        const int m = item_meta(t, it);
+        const int d1 = meta_d1(m), d2 = meta_d2(m);
         const bool hit =
             d1 == e_val || d1 == p_val || d2 == e_val || d2 == p_val;
-        const bool inc = lrn && (t.it_dense[it] != 0 || hit);
+        const bool inc = lrn && (meta_dense(m) || hit);
         s_g[it - P0] = inc ? item_grad(t, p, it, p_val, e_val) : 0.0f;
         s_inc[it - P0] = inc ? 1 : 0;
       }
@@ -700,11 +705,9 @@ cudaError_t launch_sum(const WeightSums& s, const int8_t* w_fixed, float* w,
 // kSumWidth (the tables were cut for them); anything else is refused
 extern "C" int nsx_learn_step(
     const int32_t* row_vid, const int32_t* row_card, const int32_t* row_upos,
-    const int8_t* row_flags, const int32_t* row_item,
-    const int32_t* it_ftype, const int32_t* it_wid, const int32_t* it_arity,
-    const int32_t* it_arg, const int8_t* it_dense, const int32_t* it_d1,
-    const int32_t* it_d2, const int32_t* arg_vid, const int32_t* arg_eq,
-    const int32_t* arg_card, const int8_t* arg_subst, const float* it_fv,
+    const int8_t* row_flags, const int32_t* row_item, const int32_t* it_arg,
+    const int32_t* it_wid, const int32_t* it_meta, const int32_t* arg_vid,
+    const int32_t* arg_ec, const float* it_fv,
     const float* weights, int32_t* x, int32_t* xe, const int32_t* xr,
     const int32_t* xer, int32_t* send, int32_t* send_e, const float* ext_p,
     const float* ext_e, const int32_t* tl_r0, const int32_t* tl_pc0,
@@ -721,9 +724,7 @@ extern "C" int nsx_learn_step(
       static_cast<int64_t>(smem_items) * 5 + 15 > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tables t{row_vid, row_card, row_upos, row_flags, row_item,
-                 it_ftype, it_wid,  it_arity, it_arg,    it_dense,
-                 it_d1,    it_d2,   arg_vid,  arg_eq,    arg_card,
-                 arg_subst};
+                 it_arg,  it_wid,   it_meta,  arg_vid,   arg_ec};
   const LearnStep p{weights, it_fv, x, xe, xr, xer, send, send_e, ext_p,
                     ext_e, row0, kmax, static_cast<uint32_t>(seed),
                     static_cast<uint32_t>(salt16), lrn_all, kext};

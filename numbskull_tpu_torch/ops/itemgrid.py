@@ -8,9 +8,12 @@ kernels' packed layout, windowed one-hot gathers, color-major
 renumbering and int16 tallies existed to work around the TPU's missing
 gather and its VMEM cap; none of them is carried over. Values stay in
 original variable order on the device, every color's rows and their
-items live in flat CSR tables (:func:`build_tables`), and one launch of
-``csrc/itemgrid_sweep.cu`` per (epoch, color) resamples a color with one
-thread per row. Learning (:func:`learn_color`) launches
+items live in flat CSR tables packed to 12 B an item and 8 B an argument
+(:func:`build_tables`), and one launch of ``csrc/itemgrid_sweep.cu`` per
+(epoch, color) resamples a color: at kmax 2 a block evaluates a tile of
+rows' items in parallel and one thread per row sums and draws
+(:func:`sweep_tile_rows`, :func:`sweep_lanes` and :func:`fast_step` shape
+the launch), above it one thread per row does it all. Learning (:func:`learn_color`) launches
 ``csrc/itemgrid_learn.cu`` twice per (epoch, color): both chains' draws
 with each tile of rows' gradients summed per weight into partial slots,
 then each weight's partials summed and its update; both sums have an
@@ -72,7 +75,8 @@ from numbskull_tpu_torch.compile import CompiledGraph
 from numbskull_tpu_torch.ops.factor_eval import present_types_of
 from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
                                           eval_items_at, plan_tensors)
-from numbskull_tpu_torch.types import EV_EVIDENCE, EV_QUERY
+from numbskull_tpu_torch.types import (EV_EVIDENCE, EV_QUERY, FUNC_AND,
+                                       FUNC_EQUAL, FUNC_ISTRUE, FUNC_OR)
 
 COLOR_MAX = 256      # salt stride is COLOR_MAX + 1: at most 256 colors
 VEC_K_MIN = 9        # kmax >= this draws with `vec`, below with `cdf`
@@ -96,12 +100,29 @@ TILE_ITEMS = 4096    # items per piece: a tile's shared-memory budget
 SUM_WIDTH = 1024     # threads of a weight-sum block: a weight with more
 #                      partials than this takes one, any other a warp
 WARP = 32
+SWEEP_THREADS = 128  # threads of a sweep item-kernel block: a tile's rows
+#                      are at most this many (csrc/itemgrid_sweep.cu)
+SWEEP_CHUNK = 512    # items a sweep block holds in shared memory at once
+SWEEP_ARG_CHUNK = 1024  # argument values it stages at once (fast steps,
+#                         one lane an item)
+SWEEP_BLOCKS = 132 * 8  # blocks a step should give: 8 for each of the
+#                         H100's 132 SMs
+
+# factor types whose value the sweep's item kernel reads from one fact of
+# the arguments (any 0, any 1, any unlike the first)
+FAST_TYPES = (FUNC_EQUAL, FUNC_ISTRUE, FUNC_AND, FUNC_OR)
+# the packed item word (it_meta) and argument word (arg_ec)
+META_FTYPE_BITS = 5  # ftype + 1: the codes -1 (NOOP) .. 30
+META_DENSE = 1 << 7
+META_D1_SHIFT, META_D2_SHIFT = 8, 16
 
 
 class EnvelopeError(ValueError):
     """A graph outside what the kernels are built for: cardinality above
     K_MAX_SUP, more colors than the salt stride holds, a draw position
-    whose block index overflows the salt, or item offsets beyond int32.
+    whose block index overflows the salt, item offsets beyond int32, or
+    a value beyond its field of the packed tables (:func:`pack_items`,
+    :func:`pack_args`).
     The CLI runs such graphs on the tensor-op ``ops/gibbs.GibbsEngine``
     instead; every other error of the kernel path raises."""
 
@@ -322,17 +343,11 @@ class SweepTables:
     row_upos: torch.Tensor     # (N,) int32
     row_flags: torch.Tensor    # (N,) int8: ROW_* bits
     row_item: torch.Tensor     # (N + 1,) int32 CSR offsets into items
-    it_ftype: torch.Tensor     # (I,) int32
+    it_arg: torch.Tensor       # (I + 1,) int32 CSR offsets into arguments
     it_wid: torch.Tensor       # (I,) int32
-    it_arity: torch.Tensor     # (I,) int32
-    it_arg: torch.Tensor       # (I,) int32 offset of the first argument
-    it_dense: torch.Tensor     # (I,) int8
-    it_d1: torch.Tensor        # (I,) int32
-    it_d2: torch.Tensor        # (I,) int32
-    arg_vid: torch.Tensor      # (E,) int32
-    arg_eq: torch.Tensor       # (E,) int32
-    arg_card: torch.Tensor     # (E,) int32
-    arg_subst: torch.Tensor    # (E,) int8
+    it_meta: torch.Tensor      # (I,) int32 ftype, dense, d1, d2 (pack_items)
+    arg_vid: torch.Tensor      # (E,) int32 variable; ~vid: the row's own
+    arg_ec: torch.Tensor       # (E,) int32 eq and card (pack_args)
     row0: list                 # per step: first row
     n_rows: list               # per step: row count
     map_codes: list            # per step: index into MAPS
@@ -340,6 +355,9 @@ class SweepTables:
     plans: list                # per step: the ColorPlan of its color
     item_index: list           # per step: its plan items, in table order
     item0: list                # per step: first item
+    item_shape: list           # per step: (tile rows, lanes an item,
+    #                            fast) of its item-kernel launch (kmax 2;
+    #                            sweep_tile_rows, sweep_lanes, fast_step)
     conflict: list             # per step: a row gathers its own color
     present: list              # per step: factor codes present
     row_index: list = None     # per step: the table rows' color ranks
@@ -350,6 +368,39 @@ class SweepTables:
     @property
     def device(self) -> torch.device:
         return self.row_vid.device
+
+    # the unpacked fields, for readers on the host
+    @property
+    def it_arity(self) -> torch.Tensor:
+        return self.it_arg[1:] - self.it_arg[:-1]
+
+    @property
+    def it_ftype(self) -> torch.Tensor:
+        return (self.it_meta & ((1 << META_FTYPE_BITS) - 1)) - 1
+
+    @property
+    def it_dense(self) -> torch.Tensor:
+        return ((self.it_meta & META_DENSE) != 0).to(torch.int8)
+
+    @property
+    def it_d1(self) -> torch.Tensor:
+        return (self.it_meta >> META_D1_SHIFT) & 255
+
+    @property
+    def it_d2(self) -> torch.Tensor:
+        return (self.it_meta >> META_D2_SHIFT) & 255
+
+    @property
+    def arg_subst(self) -> torch.Tensor:
+        return (self.arg_vid < 0).to(torch.int8)
+
+    @property
+    def arg_eq(self) -> torch.Tensor:
+        return self.arg_ec >> 16
+
+    @property
+    def arg_card(self) -> torch.Tensor:
+        return self.arg_ec & 0xFFFF
 
     @property
     def n_steps(self) -> int:
@@ -367,6 +418,83 @@ class SweepTables:
 
 
 _NO_RANK = np.int64(1) << 62
+
+
+def _fits(name: str, a: np.ndarray, lo: int, hi: int) -> None:
+    if len(a) and (int(a.min()) < lo or int(a.max()) > hi):
+        raise EnvelopeError("%s from %d to %d: beyond its field of the "
+                            "packed tables (%d to %d)"
+                            % (name, a.min(), a.max(), lo, hi))
+
+
+def pack_items(ftype, dense, d1, d2) -> np.ndarray:
+    """The items' packed words, int32: ``ftype + 1`` in bits 0-4 (the
+    codes -1 to 30), ``dense`` in bit 7, ``d1`` in bits 8-15 and ``d2``
+    in bits 16-23 (as the TPU kernel packs ``d1 | d2 << 8``). A value
+    beyond its field raises EnvelopeError."""
+    ftype, d1, d2 = (np.asarray(a) for a in (ftype, d1, d2))
+    _fits("factor function code", ftype, -1, (1 << META_FTYPE_BITS) - 2)
+    _fits("slot d1", d1, 0, 255)
+    _fits("slot d2", d2, 0, 255)
+    meta = np.add(ftype, 1, dtype=np.int32)
+    meta |= np.left_shift(d1, META_D1_SHIFT, dtype=np.int32)
+    meta |= np.left_shift(d2, META_D2_SHIFT, dtype=np.int32)
+    meta |= np.left_shift(np.asarray(dense, bool), 7, dtype=np.int32)
+    return meta
+
+
+def pack_args(vid, subst, eq, card):
+    """The arguments' packed words, two int32 arrays: the variable read,
+    ``~vid`` where the argument is the row's own variable (``subst``);
+    and ``eq << 16 | card`` (eq signed in 16 bits, card unsigned). A
+    value beyond its field raises EnvelopeError."""
+    vid, eq, card = (np.asarray(a) for a in (vid, eq, card))
+    _fits("argument variable", vid, 0, 2 ** 31 - 1)
+    _fits("argument eq", eq, -(1 << 15), (1 << 15) - 1)
+    _fits("argument cardinality", card, 0, (1 << 16) - 1)
+    ref = vid.astype(np.int32)
+    np.invert(ref, out=ref, where=np.asarray(subst, bool))
+    ec = np.left_shift(eq, 16, dtype=np.int32)
+    ec |= card.astype(np.int32, copy=False)
+    return ref, ec
+
+
+def fast_step(ftype, arity) -> bool:
+    """Whether a step with items of these factor codes and arities runs
+    the sweep's item kernel built for FAST_TYPES alone: every item of
+    one of those types, with at most SWEEP_ARG_CHUNK arguments (what the
+    kernel stages at once)."""
+    arity = np.asarray(arity)
+    return bool(np.isin(ftype, FAST_TYPES).all() and
+                (not len(arity) or int(arity.max()) <= SWEEP_ARG_CHUNK))
+
+
+def sweep_lanes(n_items: int, n_args: int) -> int:
+    """Threads that evaluate one item together in the sweep's item
+    kernel (kmax 2) for a step whose ``n_items`` items hold ``n_args``
+    arguments: a power of two up to WARP, the least at which each thread
+    reads at most about two of an item's arguments on average."""
+    mean = n_args / max(n_items, 1)
+    lanes = 1
+    while lanes < WARP and 2 * lanes < mean:
+        lanes *= 2
+    return lanes
+
+
+def sweep_tile_rows(n_rows: int, n_items: int, lanes: int = 1) -> int:
+    """Rows of a tile of the sweep's item kernel (kmax 2) for a step of
+    ``n_rows`` rows holding ``n_items`` items, ``lanes`` threads an item:
+    a power of two up to SWEEP_THREADS, the most that still gives the
+    step SWEEP_BLOCKS blocks, or, when that is more, the fewest whose
+    items keep a block's SWEEP_THREADS threads busy on average. No tile
+    size changes a result: each row sums its own items in their
+    order."""
+    fill = 1 << (max(n_rows // SWEEP_BLOCKS, 1).bit_length() - 1)
+    per_row = max(n_items, 1) * lanes / max(n_rows, 1)
+    busy = 1
+    while busy < SWEEP_THREADS and busy * per_row < SWEEP_THREADS:
+        busy *= 2
+    return min(max(fill, busy), SWEEP_THREADS)
 
 
 def shard_rows(upos: np.ndarray, n_g: int, d: int):
@@ -398,7 +526,10 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
 
     ``shard=(d, n_g)`` keeps only shard d's rows of every step
     (:func:`shard_rows`), with their items and arguments, and makes
-    their draw positions local to the shard."""
+    their draw positions local to the shard.
+
+    Items and arguments are packed (:func:`pack_items`,
+    :func:`pack_args`); a value beyond its field raises EnvelopeError."""
     var_card = np.asarray(cg.var_card, np.int64)
     isev = np.asarray(cg.var_isev, np.int64)
     color_of = np.asarray(cg.color_of, np.int64)
@@ -413,6 +544,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
     rows, items, args = [], [], []
     row0, n_rows, n_row_total, n_arg_total = [], [], 0, 0
     item_index, item0, conflict, n_item_total = [], [], [], 0
+    item_shape = []
     row_index = [] if shard is not None else None
     for c in schedule.colors:
         p = cg.plans[c]
@@ -430,7 +562,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
             row_index.append(sel)
         n = len(vids)
         gathered = p.it_args_valid[iv] & ~p.it_subst[iv]
-        avid = p.it_args_vid[iv].astype(np.int64)
+        avid = p.it_args_vid[iv]
         if rank is None:
             iv = iv[np.argsort(it_local[iv], kind="stable")]
         else:
@@ -447,20 +579,24 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
                          upos=upos_all[vids] - lo,
                          flags=row_bits[vids],
                          count=np.bincount(it_row, minlength=n)))
-        items.append(dict(ftype=p.it_ftype[iv], wid=p.it_wid[iv],
-                          arity=arity, dense=p.it_dense[iv],
-                          d1=p.it_d1[iv], d2=p.it_d2[iv],
-                          arg=n_arg_total + np.concatenate(
-                              ([0], np.cumsum(arity)[:-1])).astype(
-                                  np.int64)))
-        args.append(dict(vid=p.it_args_vid[iv][amask],
-                         eq=p.it_args_eq[iv][amask],
-                         card=p.it_args_card[iv][amask],
-                         subst=p.it_subst[iv][amask]))
+        items.append(dict(wid=p.it_wid[iv], arity=arity,
+                          meta=pack_items(p.it_ftype[iv], p.it_dense[iv],
+                                          p.it_d1[iv], p.it_d2[iv])))
+        whole = bool(amask.all())   # every item at the plan's widest
+
+        def args_of(a):
+            return a[iv].reshape(-1) if whole else a[iv][amask]
+
+        ref, ec = pack_args(args_of(p.it_args_vid), args_of(p.it_subst),
+                            args_of(p.it_args_eq), args_of(p.it_args_card))
+        args.append(dict(vid=ref, ec=ec))
         row0.append(n_row_total)
         n_rows.append(n)
         item_index.append(iv)
         item0.append(n_item_total)
+        lanes = sweep_lanes(len(iv), int(arity.sum()))
+        item_shape.append((sweep_tile_rows(n, len(iv), lanes), lanes,
+                           int(fast_step(p.it_ftype[iv], arity))))
         n_row_total += n
         n_arg_total += int(arity.sum())
         n_item_total += len(iv)
@@ -476,6 +612,10 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
     row_item = np.concatenate(([0], np.cumsum(counts)))
     if row_item[-1] >= 2 ** 31 or n_arg_total >= 2 ** 31:
         raise EnvelopeError("graph too large for int32 item offsets")
+    it_arg = np.zeros(int(row_item[-1]) + 1, np.int32)
+    if len(it_arg) > 1:
+        np.cumsum(np.concatenate([q["arity"] for q in items]),
+                  out=it_arg[1:])
     # the salt adds the block index upos >> 10 below 65536 (salt16_of)
     if any(len(r["upos"]) and r["upos"].max() >= RB << 16 for r in rows):
         raise EnvelopeError("a color has a draw position >= %d: its block "
@@ -489,22 +629,17 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         row_upos=cat(rows, "upos", np.int32),
         row_flags=cat(rows, "flags", np.int8),
         row_item=torch.as_tensor(row_item.astype(np.int32), device=device),
-        it_ftype=cat(items, "ftype", np.int32),
+        it_arg=torch.as_tensor(it_arg, device=device),
         it_wid=cat(items, "wid", np.int32),
-        it_arity=cat(items, "arity", np.int32),
-        it_arg=cat(items, "arg", np.int32),
-        it_dense=cat(items, "dense", np.int8),
-        it_d1=cat(items, "d1", np.int32),
-        it_d2=cat(items, "d2", np.int32),
+        it_meta=cat(items, "meta", np.int32),
         arg_vid=cat(args, "vid", np.int32),
-        arg_eq=cat(args, "eq", np.int32),
-        arg_card=cat(args, "card", np.int32),
-        arg_subst=cat(args, "subst", np.int8),
+        arg_ec=cat(args, "ec", np.int32),
         row0=row0, n_rows=n_rows,
         map_codes=[MAPS.index(m) for m in schedule.maps],
         draw_codes=[DRAWS.index(d) for d in schedule.draws],
         plans=[cg.plans[c] for c in schedule.colors],
-        item_index=item_index, item0=item0, conflict=conflict,
+        item_index=item_index, item0=item0, item_shape=item_shape,
+        conflict=conflict,
         present=[present_types_of(cg.plans[c].it_ftype)
                  for c in schedule.colors],
         row_index=row_index,
@@ -583,11 +718,12 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
         lib = load_library(name)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "itemgrid_sweep":
-            sigs = {"nsx_itemgrid_sweep_color": [P] * 22 + [I] * 9 + [P]}
+            sigs = {"nsx_itemgrid_sweep_color": [P] * 16 + [I] * 12 + [P],
+                    "nsx_itemgrid_sweep_attrs": [I, P, P]}
         elif name == "itemgrid_exchange":
             sigs = {"nsx_exchange_unpack": [P] * 5 + [I] * 6 + [P]}
         else:
-            sigs = {"nsx_learn_step": [P] * 36 + [I] * 11 + [P],
+            sigs = {"nsx_learn_step": [P] * 30 + [I] * 11 + [P],
                     "nsx_learn_sum": [P] * 7 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P],
                     "nsx_learn_partial": [P] * 7 + [I] * 5 + [P],
@@ -603,12 +739,9 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
 
 _TABLE_FIELDS = (("row_vid", torch.int32), ("row_card", torch.int32),
                  ("row_upos", torch.int32), ("row_flags", torch.int8),
-                 ("row_item", torch.int32), ("it_ftype", torch.int32),
-                 ("it_wid", torch.int32), ("it_arity", torch.int32),
-                 ("it_arg", torch.int32), ("it_dense", torch.int8),
-                 ("it_d1", torch.int32), ("it_d2", torch.int32),
-                 ("arg_vid", torch.int32), ("arg_eq", torch.int32),
-                 ("arg_card", torch.int32), ("arg_subst", torch.int8))
+                 ("row_item", torch.int32), ("it_arg", torch.int32),
+                 ("it_wid", torch.int32), ("it_meta", torch.int32),
+                 ("arg_vid", torch.int32), ("arg_ec", torch.int32))
 
 
 def _check(name: str, a: torch.Tensor, dtype, device, shape=None):
@@ -673,7 +806,8 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
                   seed977: int, salt16: int, tally: bool,
                   send: torch.Tensor | None = None,
                   ext: torch.Tensor | None = None) -> None:
-    """Launch the CUDA kernel for step ``ci`` on the current stream. A
+    """Launch the CUDA kernel for step ``ci`` on the current stream (at
+    kmax 2 the item kernel, shaped by ``t.item_shape[ci]``). A
     step with no rows launches nothing and counts nothing; a
     conflicting step reads from a snapshot of ``x``. With ``send``, the
     kernel also writes each row's value after the step to
@@ -695,7 +829,7 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
     rc = fn(*t.ptrs, _ptr(weights), _ptr(xr), _ptr(x), _ptr(counts),
             send_p, ext_p, t.row0[ci], t.n_rows[ci], t.kmax,
             t.map_codes[ci], t.draw_codes[ci], seed977, salt16,
-            int(bool(tally)), kext, _stream(t.device))
+            int(bool(tally)), kext, *t.item_shape[ci], _stream(t.device))
     _raise_if(rc, "itemgrid sweep kernel")
     KERNEL_LAUNCHES += 1
     EXT_LAUNCHES += ext is not None

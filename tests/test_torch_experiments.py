@@ -15,7 +15,7 @@ from numbskull_tpu_torch.experiments import (common, degree_sweep,
                                              engine_tradeoff, hbm_scale,
                                              micro_gather, micro_gather2,
                                              micro_gather_xla,
-                                             profile_itemgrid)
+                                             profile_itemgrid, sweep_rates)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,6 +41,7 @@ COLUMNS = {
     "profile_itemgrid": (["config"],                              # :67-73
                          ["phase", "kernel", "device_ms_per_epoch",
                           "epoch_ms", "busy_share", "median_gap_us"]),
+    "sweep_rates": ([], sweep_rates.HEADER),    # no JAX counterpart
 }
 
 RUNS = {
@@ -61,6 +62,8 @@ RUNS = {
                                                      epochs=2),
     "profile_itemgrid": lambda p: profile_itemgrid.run(p, 8, 2, "cpu",
                                                        scale=0.001),
+    "sweep_rates": lambda p: sweep_rates.run(p, "cpu", scale=0.0005,
+                                             points=(1, 3)),
 }
 
 
@@ -96,6 +99,13 @@ def test_driver_writes_its_tsv(tmp_path, name):
             (c, p) for c in ("ising8", "voting_deg10", "voting_deg50")
             for p in ("infer", "learn")]
         assert all(0 < _number(r["busy_share"]) for r in alls)
+    if name == "sweep_rates":
+        assert [r["graph"] for r in rows] == [
+            "ising22", "coin200", "lf100", "potts5_card32", "potts5_card128",
+            "voting_deg10", "voting_deg50"]
+        assert [int(r["kmax"]) for r in rows] == [2, 2, 3, 32, 128, 2, 2]
+        assert all(_number(r["epoch_ms"]) > 0 for r in rows)
+        assert {r["checkout"] for r in rows} == {REPO}
     if name.startswith("micro_gather") and name != "micro_gather_xla":
         assert all(float(r["max_abs_err"]) == 0 for r in rows)
         sweep = [r for r in rows if r["mode"].startswith("sweep")]
