@@ -38,8 +38,11 @@ Phases (each one that fails exits non-zero; nothing is retried):
    agree bit for bit, and with the plain version.
    Lattice: ``grid_gibbs`` (kernel #8) against ``grid_gibbs_reference``
    from one lattice, x and count bit-equal, on odd and even sides, 1 x m
-   and n x 1, 70000 rows, weight 0.4 and -30, a bias, burn-in, and at
-   1024x1024, 2048x2048 and 8192x8192.
+   and n x 1, 70000 rows or columns, weight 0.4 and -30, a bias,
+   burn-in; at each tile and k of the plan's table, sides of T - 1, T,
+   T + 1 and 2T + 1 and burn k - 1, k and k + 1 (chunks that start and
+   end inside the burn-in); and at 1024x1024, 2048x2048 and 8192x8192
+   over several chunks.
 3. Main path, inference: a 1024x1024 Ising graph (1,048,576 boolean
    variables, 2,095,104 EQUAL factors, weight 0.25) written as
    DeepDive binary files, then ``numbskull_tpu_torch.numbskull.main``
@@ -65,8 +68,9 @@ Phases (each one that fails exits non-zero; nothing is retried):
    with the device busy share of each.
 6. Main path, lattice: ``GridGibbsEngine`` (ops/stencil) at 1024x1024,
    weight 0.3, 50 burn-in and 200 tallied sweeps on the card, its launch
-   count, and its mean marginal and equal-neighbour share against
-   ``ItemGridEngine`` on ``ising_grid(1024, 1024, 0.3)``; then
+   count against the plan's (``lattice_plan``), and its mean marginal
+   and equal-neighbour share against ``ItemGridEngine`` on
+   ``ising_grid(1024, 1024, 0.3)``; then
    epoch-differenced rates of kernel and plain version at 1024, 2048 and
    8192 squared, with the device busy share and device time per kernel.
 7. Main path, ``engine="hbm"``: the 4096x8192 Ising (33,554,432
@@ -129,7 +133,8 @@ path launches, largest difference from the plain version, ms per epoch
 of kernel and plain version (the has_ext forms: per part-epoch on one
 part's tables of the 1M Ising; the gathers: per call at shape A and at
 the span-8 shape), the bound from this run's shapes at the H100's
-3.35 TB/s and 67 TFLOP/s float32, and under ``hbm`` the 33.5 M path that
+3.35 TB/s and 67 TFLOP/s float32 (the lattice's per pipe: int32 at 64
+lanes per SM and clock), and under ``hbm`` the 33.5 M path that
 kernels #6 and #7 of the TPU package served); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
@@ -138,7 +143,8 @@ script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
 gather`` phases 1 and 10, ``python3 chip_smoke.py learn`` phases 1, 2
 (learning), 4, 5 (learning and LF inference) and 7, ``python3
 chip_smoke.py sweep`` phases 1, 2 (the sweep), 3 with the sweep's rates
-on its graph, and 7.
+on its graph, and 7, ``python3 chip_smoke.py lattice`` phases 1, 2 (the
+lattice) and 6.
 """
 
 from __future__ import annotations
@@ -170,7 +176,9 @@ LEARN = {"name": "itemgrid_learn", "route": "cuda",
          "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2045"}
 STENCIL = {"name": "stencil_gibbs", "route": "cuda",
            "source": "numbskull_tpu_torch/csrc/stencil_gibbs.cu",
-           "replaces": "numbskull_tpu/ops/stencil_pallas.py:29"}
+           "replaces": "numbskull_tpu/ops/stencil_pallas.py:29",
+           "status": "redesigned: k sweeps a launch on shared-memory "
+                     "tiles, one thread per updated cell"}
 MC_SWEEP = {"name": "itemgrid_mc_sweep", "route": "cuda",
             "source": "numbskull_tpu_torch/csrc/itemgrid_sweep.cu",
             "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:3259",
@@ -207,13 +215,14 @@ COIN_TRUTH = (0.8, -0.5, 0.4)
 LATTICE_W = 0.3          # bench.py:48 and :62, the lattice cells' weight
 LATTICES = (1024, 2048, 8192)    # bench.py:375, :381; 8192 beyond VMEM
 # (n, m, weight, bias, burn, epochs): odd and even sides, one row, one
-# column, the antiferromagnet, a bias, burn-in, more rows than a grid's
-# y dimension holds
+# column, the antiferromagnet, a bias, burn-in, 70000 rows or columns;
+# stencil_edge_fixtures adds the plan's tile and chunk edges
 STENCIL_FIXTURES = ((8, 8, 0.4, 0.0, 0, 6), (33, 17, 0.4, 0.0, 2, 6),
                     (32, 48, 0.4, 0.0, 2, 6), (1, 37, 0.4, 0.2, 1, 8),
                     (41, 1, 0.4, -0.2, 1, 8), (16, 16, -30.0, 0.0, 2, 6),
                     (19, 24, 0.3, 0.7, 5, 5), (1, 1, 0.4, 0.3, 3, 9),
-                    (70000, 3, 0.4, 0.1, 1, 2))
+                    (70000, 3, 0.4, 0.1, 1, 2), (3, 70000, 0.4, 0.1, 1, 2))
+LATTICE_RUN = (9, 20)    # phase 2's (burn, epochs) at the LATTICES sizes
 HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
 # the learn step kernels' and the sweep kernels' names
 # (csrc/itemgrid_learn.cu, csrc/itemgrid_sweep.cu), in a trace
@@ -302,14 +311,19 @@ def phase_device(torch):
         log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
                                else "cached"))
         if info:
-            # the sweep and learn kernels' whole report (entry,
+            # the sweep, learn and lattice kernels' whole report (entry,
             # registers, shared memory, spills), the others' register and
             # spill lines
             for line in info["ptxas"].splitlines():
-                if name in ("itemgrid_sweep", "itemgrid_learn") or \
+                if name in ("itemgrid_sweep", "itemgrid_learn",
+                            "stencil_gibbs") or \
                         "registers" in line or "spill" in line:
                     log("    ptxas: " + line.strip())
     log("  " + sweep_resources())
+    for n in LATTICES:
+        plan = stencil_kernel.lattice_plan(n, n, 250)
+        log("  lattice %dx%d plan %s: block %s, %d B dynamic shared memory"
+            % (n, n, plan, plan.block, plan.shared_bytes))
 
 
 def sweep_resources() -> str:
@@ -1032,13 +1046,12 @@ def learn_epoch_cost(torch, lt):
     return nbytes, ops
 
 
-def stencil_epoch_cost(n, m):
-    """(bytes, operations) of one lattice sweep: the lattice and the
-    counts each read once and written once (16 B per cell; the kernel's
-    two launches read the lattice twice, which the bound does not
-    charge); about 45 operations per cell updated (neighbours, degree,
-    fma, hash, exp, draw)."""
-    return 16 * n * m, 45 * n * m
+def lattice_bound(n, sweeps):
+    """(ms, "bytes" or "operations", pipe) of one sweep of an n x n
+    lattice in a call of ``sweeps`` sweeps (experiments/common: 12 B a
+    cell a call, 14 integer operations per updated cell)."""
+    from numbskull_tpu_torch.experiments.common import lattice_bound_ms
+    return lattice_bound_ms(n, n, sweeps)
 
 
 def device_busy(torch, fn, by_kernel=None):
@@ -1185,20 +1198,45 @@ def compare_stencil(torch, n, m, weight, bias, burn, epochs, seed=7):
     return equal, n * m, err
 
 
+def stencil_edge_fixtures():
+    """Fixtures at the edges of each tile and k of the plan's table
+    (ops/stencil_kernel._PLANS): sides of T - 1, T, T + 1 and 2T + 1
+    (columns widened by whole tiles until the lattice reaches the row of
+    the table), and burn k - 1, k and k + 1 with k + 1 epochs, so chunks
+    start and end inside the burn-in and the first tallied chunk stores
+    its counts."""
+    from numbskull_tpu_torch.ops import stencil_kernel as sk
+    out = []
+    for floor, tr, tc, k, _, _ in sk._PLANS:
+        shapes = ((tr - 1, tc + 1, 1, k + 2), (tr, tc, 1, k + 2),
+                  (2 * tr + 1, 2 * tc + 1, 1, k + 2),
+                  *((tr + 1, tc - 1, burn, k + 1)
+                    for burn in (k - 1, k, k + 1)))
+        for n, m, burn, epochs in shapes:
+            m += tc * max(0, -(-(floor - n * m) // (n * tc)))
+            out.append((n, m, 0.4, 0.1, burn, epochs))
+    return tuple(out)
+
+
 def phase_stencil_compare(torch):
     """Phase 2, lattice: kernel #8 against its plain version, bit for bit,
-    on the fixtures and at the lattice phase's sizes. Returns the max
-    abs difference seen."""
+    on the fixtures, the plan's tile and chunk edges, and at the lattice
+    phase's sizes over several chunks. Returns the max abs difference
+    seen."""
+    from numbskull_tpu_torch.ops import stencil_kernel as sk
     log("== phase 2: lattice kernel vs plain version on the card "
         "(bit-equal)")
     worst = 0
-    cases = STENCIL_FIXTURES + tuple((n, n, LATTICE_W, 0.0, 1, 2)
-                                     for n in LATTICES)
+    cases = STENCIL_FIXTURES + stencil_edge_fixtures() + tuple(
+        (n, n, LATTICE_W, 0.0, *LATTICE_RUN) for n in LATTICES)
     for n, m, w, b, burn, epochs in cases:
+        plan = sk.lattice_plan(n, m, burn + epochs)
         eq, tot, err = compare_stencil(torch, n, m, w, b, burn, epochs)
-        log("  lattice %5dx%-5d w %6.2f b %5.2f burn %d epochs %d: %d of %d "
-            "cells equal (x and count), max |diff| %d"
-            % (n, m, w, b, burn, epochs, eq, tot, err))
+        log("  lattice %5dx%-6d w %6.2f b %5.2f burn %2d epochs %2d, tile "
+            "%dx%d k %d, %d launches: %d of %d cells equal (x and count), "
+            "max |diff| %d" % (n, m, w, b, burn, epochs, plan.tile_rows,
+                               plan.tile_cols, plan.k, plan.launches, eq,
+                               tot, err))
         if eq != tot or err != 0:
             fail("lattice kernel and plain version disagree on %dx%d w %g "
                  "b %g" % (n, m, w, b))
@@ -1239,12 +1277,13 @@ def phase_lattice(torch, card):
     launches = sk.STENCIL_LAUNCHES
     marg = eng.marginals(st, epochs)
     m_s, e_s = float(marg.mean()), _equal_pair_share(st.x)
-    log("  inference(%d epochs, burn %d) took %.4f s, %d launches; mean "
-        "marginal %.4f, equal-neighbour share %.4f" % (epochs, burn, wall,
-                                                      launches, m_s, e_s))
-    if launches != 2 * (burn + epochs):
-        fail("lattice launches %d != 2 x (%d + %d)" % (launches, burn,
-                                                        epochs))
+    log("  inference(%d epochs, burn %d) took %.4f s, %d launches (plan "
+        "%s); mean marginal %.4f, equal-neighbour share %.4f"
+        % (epochs, burn, wall, launches,
+           sk.lattice_plan(n, n, burn + epochs), m_s, e_s))
+    want = sk.lattice_plan(n, n, burn + epochs).launches
+    if launches != want:
+        fail("lattice launches %d, the plan's %d" % (launches, want))
     if marg.shape != (n, n) or not np.isfinite(marg).all() or \
             int(st.count.max()) > epochs:
         fail("lattice marginals malformed")
@@ -1264,7 +1303,9 @@ def phase_lattice(torch, card):
     for n in LATTICES:
         keng = GridGibbsEngine(n, n, LATTICE_W, device=DEVICE)
         x0 = sk.initial_lattice(1, n, n, DEVICE)
-        pts = {"kernel": (20, 220) if n < 8192 else (5, 25),
+        # at least 8 ms of sweeps between a kernel's two points, above
+        # the host's variation from call to call
+        pts = {"kernel": (50, 2050) if n < 8192 else (8, 88),
                "plain": (2, 6) if n < 8192 else (1, 3)}
         fns = {"kernel": lambda e, keng=keng: keng.run(1, 0, e),
                "plain": lambda e, n=n, x0=x0: sk.grid_gibbs_reference(
@@ -2427,6 +2468,23 @@ def sweep_record(launches, err, sweep, cost, hbm):
     return rec
 
 
+def stencil_record(launches, err, lattice):
+    """The kernels-line record of the lattice kernel (TPU kernel #8):
+    launches of phase 6's main path, ms per sweep at 1024x1024 (and at
+    every size under ``sizes``), the bound of a sweep in phase 6's
+    250-sweep call."""
+    grid = lattice[LATTICES[0]]
+    rec = dict(STENCIL, launches=launches, max_abs_err=err,
+               ms=grid["kernel"][1], plain_ms=grid["plain"][1],
+               library_ms=None)    # no single PyTorch call does this
+    rec["bound_ms"], rec["bound_by"], rec["bound_pipe"] = lattice_bound(
+        LATTICES[0], 250)
+    rec["sizes"] = {str(n): {"ms": r["kernel"][1], "plain_ms": r["plain"][1],
+                             "bound_ms": lattice_bound(n, 250)[0]}
+                    for n, r in lattice.items()}
+    return rec
+
+
 def main():
     torch = setup()
     card = card_line()
@@ -2446,6 +2504,11 @@ def main():
     if sys.argv[1:] == ["sweep"]:     # phases 1, 2 (the sweep), 3, 7
         finish(torch, card, [sweep_record(*sweep_phases(torch, card))])
         return
+    if sys.argv[1:] == ["lattice"]:   # phases 1, 2 (the lattice), 6
+        worst_s = phase_stencil_compare(torch)
+        launches, lattice = phase_lattice(torch, card)
+        finish(torch, card, [stencil_record(launches, worst_s, lattice)])
+        return
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
     worst_s = phase_stencil_compare(torch)
@@ -2463,17 +2526,12 @@ def main():
     mcr = phase_mc(torch, card)
     bspr = phase_bsp(torch, card)
     gatherr = phase_gather(torch, card)
-    grid = lattice[LATTICES[0]]
     records = [
         sweep_record(launches, max(worst, err3, err5, hbm["err"]),
                      rates[("ising1024", "infer")], sweep_cost, hbm),
         learn_record(torch, learns, max(worst_l, err4, err5_l),
                      rates[("coin400k", "learn")], learn_cost, hbm),
-        dict(STENCIL, launches=stencil_launches, max_abs_err=worst_s,
-             ms=grid["kernel"][1], plain_ms=grid["plain"][1],
-             library_ms=None)]     # no single PyTorch call does this
-    records[2]["bound_ms"], records[2]["bound_by"] = bound(
-        *stencil_epoch_cost(LATTICES[0], LATTICES[0]))
+        stencil_record(stencil_launches, worst_s, lattice)]
     records += mc_records(mcr) + bsp_records(bspr) + \
         gather_records(gatherr)
     finish(torch, card, records)

@@ -12,6 +12,13 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3 (data sheet, SXM)
 H100_F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 H100_L2_BYTES = 50e6
+# int32 at 64 lanes per SM and clock, 132 SMs at 1.98 GHz
+H100_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the lattice kernel's integer operations per updated cell and sweep:
+# the hash 9 (one xor of the hoisted row, column and salt factors, three
+# shift-xors, two multiplies), the neighbour sum 3, the draw's compare
+# and the tally
+LATTICE_INT_OPS = 14
 
 
 def parser(doc: str, out_default: str) -> argparse.ArgumentParser:
@@ -67,6 +74,22 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     t_b = nbytes / H100_BYTES_PER_S * 1e3
     t_o = ops / H100_F32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def lattice_bound_ms(n: int, m: int, sweeps: int) -> tuple:
+    """(ms, "bytes" or "operations", "bytes" or "int32"): the least time
+    the card could take for one sweep of an n x m lattice in a call of
+    ``sweeps`` sweeps. The call moves 12 B a cell (x in, x out, counts
+    out), spread over its sweeps; each cell is updated once a sweep, at
+    LATTICE_INT_OPS int32 operations. The kernel does no float32
+    operation and no expf per cell (the draw's 9 thresholds are found
+    once per block), so no other pipe can bind."""
+    cells = n * m
+    t_b = 12.0 * cells / max(sweeps, 1) / H100_BYTES_PER_S
+    t_o = LATTICE_INT_OPS * cells / H100_INT32_OPS_PER_S
+    if t_b >= t_o:
+        return t_b * 1e3, "bytes", "bytes"
+    return t_o * 1e3, "operations", "int32"
 
 
 def sync(device) -> None:

@@ -13,6 +13,7 @@ import pytest
 from numbskull_tpu_torch import benchutil
 from numbskull_tpu_torch.experiments import (common, degree_sweep,
                                              engine_tradeoff, hbm_scale,
+                                             lattice_rates, lattice_tiles,
                                              micro_gather, micro_gather2,
                                              micro_gather_xla,
                                              profile_itemgrid, sweep_rates)
@@ -42,6 +43,7 @@ COLUMNS = {
                          ["phase", "kernel", "device_ms_per_epoch",
                           "epoch_ms", "busy_share", "median_gap_us"]),
     "sweep_rates": ([], sweep_rates.HEADER),    # no JAX counterpart
+    "lattice_rates": ([], lattice_rates.HEADER),
 }
 
 RUNS = {
@@ -64,6 +66,8 @@ RUNS = {
                                                        scale=0.001),
     "sweep_rates": lambda p: sweep_rates.run(p, "cpu", scale=0.0005,
                                              points=(1, 3)),
+    "lattice_rates": lambda p: lattice_rates.run(p, "cpu", sides=(8, 12),
+                                                 points=(1, 3)),
 }
 
 
@@ -106,6 +110,11 @@ def test_driver_writes_its_tsv(tmp_path, name):
         assert [int(r["kmax"]) for r in rows] == [2, 2, 3, 32, 128, 2, 2]
         assert all(_number(r["epoch_ms"]) > 0 for r in rows)
         assert {r["checkout"] for r in rows} == {REPO}
+    if name == "lattice_rates":
+        assert [(r["side"], r["cells"]) for r in rows] == \
+            [("8", "64"), ("12", "144")]
+        assert all(_number(r["sweep_ms"]) > 0 for r in rows)
+        assert {r["checkout"] for r in rows} == {REPO}
     if name.startswith("micro_gather") and name != "micro_gather_xla":
         assert all(float(r["max_abs_err"]) == 0 for r in rows)
         sweep = [r for r in rows if r["mode"].startswith("sweep")]
@@ -114,6 +123,16 @@ def test_driver_writes_its_tsv(tmp_path, name):
         modes = {r["mode"] for r in rows} - {r["mode"] for r in sweep}
         assert modes == set(micro_gather.MODES if name == "micro_gather"
                             else micro_gather2.MODES)
+
+
+def test_lattice_tiles_needs_the_card(tmp_path):
+    """The plan sweep times the CUDA kernel: on the CPU it raises rather
+    than time anything else, and writes nothing."""
+    out = tmp_path / "tiles.tsv"
+    with pytest.raises(RuntimeError, match="cuda"):
+        lattice_tiles.run(str(out), "cpu", sides=(8,),
+                          candidates=((8, 8, 1, 2, 1),))
+    assert not out.exists()
 
 
 def test_driver_command_line(tmp_path):

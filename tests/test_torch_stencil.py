@@ -224,3 +224,194 @@ def test_wrapper_checks_and_never_launches_on_cpu():
                       bias=0.0)
     sk.grid_gibbs(x, 0, 1, 2, n=4, m=4, weight=0.1, bias=0.0)
     assert sk.STENCIL_LAUNCHES == 0 and pig.KERNEL_LAUNCHES == 0
+
+
+# ---- the CUDA kernel's tiled schedule, emulated on the CPU ---------------
+
+def _tiled_emulation(x, seed, burn, epochs, n, m, w, b, plan, halos=None):
+    """What csrc/stencil_gibbs.cu computes, in plain PyTorch, block by
+    block: per chunk of plan.k sweeps, each tile's window (the tile and
+    the plan's halos, with a ghost ring of one row above and below and
+    one 8-cell word left and right, all clipped at the lattice's edges)
+    is cut from the chunk's input lattice and runs the chunk's 2k
+    half-steps on its own with half_step_reference's arithmetic (global
+    degrees and hash positions; the ghost ring is read, never updated);
+    only the tile is kept, and its tallies of the chunk's sweeps >= burn
+    are added. ``halos`` replaces the plan's."""
+    rows, cols = sk.lattice_index(n, m, "cpu")
+    deg = sk.degrees(n, m, "cpu")
+    tw, tb = sk.two_w_b(w, b)
+    s977 = sk.seed977_of(seed)
+    above, below, left, right = plan.halos if halos is None else halos
+    x = x.clone()
+    count = torch.zeros((n, m), dtype=torch.int32)
+    sweeps = burn + epochs
+    for s0 in range(0, sweeps, plan.k):
+        s1 = min(s0 + plan.k, sweeps)
+        new = x.clone()
+        for r0, c0, r1, c1 in plan.tiles(n, m):
+            lo_r, hi_r = r0 - above, r0 + plan.tile_rows + below
+            lo_c, hi_c = c0 - left, c0 + plan.tile_cols + right
+            gr = slice(max(lo_r - 1, 0), min(hi_r + 1, n))
+            gc = slice(max(lo_c - 8, 0), min(hi_c + 8, m))
+            win = x[gr, gc].clone()
+            wr, wc = rows[gr, gc], cols[gr, gc]
+            inside = (wr >= lo_r) & (wr < hi_r) & (wc >= lo_c) & (wc < hi_c)
+            tile = (wr >= r0) & (wr < r1) & (wc >= c0) & (wc < c1)
+            tally = torch.zeros_like(win)
+            for s in range(s0, s1):
+                for half in (0, 1):
+                    u = sk.hash_uniforms(s977, 2 * s + half, wr, wc)
+                    win = sk.half_step_reference(
+                        win, inside & ((wr + wc) % 2 == half), u,
+                        deg[gr, gc], tw, tb)
+                if s >= burn:
+                    tally += win
+            new[r0:r1, c0:c1] = win[tile].view(r1 - r0, c1 - c0)
+            count[r0:r1, c0:c1] += tally[tile].view(r1 - r0, c1 - c0)
+        x = new
+    return x, count
+
+
+# (n, m, tile rows, tile cols, k, rows a thread, words a thread, burn,
+# epochs, w, b): odd and even sides; sides of T - 1, T, T + 1 and 2T + 1
+# for 4 x 8 and 4 x 16 tiles; burn k - 1, k, k + 1; one epoch; k beyond
+# the call's sweeps; 1 x m and n x 1; a bias; the antiferromagnet;
+# strips of 1 to 4 rows; one and two words a thread
+TILED = [
+    (9, 17, 4, 8, 2, 2, 1, 1, 3, 0.4, 0.0),
+    (10, 16, 4, 8, 2, 4, 1, 2, 3, 0.4, 0.0),
+    (3, 7, 4, 8, 2, 2, 1, 3, 2, 0.4, 0.0),
+    (4, 8, 4, 8, 2, 1, 1, 1, 4, 0.4, 0.0),
+    (5, 9, 4, 8, 3, 2, 1, 2, 2, 0.4, 0.0),
+    (9, 17, 4, 8, 3, 3, 1, 3, 2, 0.4, 0.0),
+    (9, 17, 4, 8, 3, 2, 1, 4, 3, 0.4, 0.0),
+    (8, 8, 4, 8, 2, 2, 1, 0, 1, 0.4, 0.0),
+    (8, 8, 4, 8, 8, 2, 1, 2, 3, 0.4, 0.0),
+    (1, 37, 4, 8, 2, 2, 1, 1, 4, 0.4, 0.2),
+    (41, 1, 4, 8, 2, 4, 1, 1, 4, 0.4, -0.2),
+    (12, 11, 4, 8, 2, 2, 1, 2, 3, 0.3, 0.7),
+    (13, 13, 4, 8, 2, 2, 1, 1, 3, -30.0, 0.0),
+    (1, 1, 4, 8, 2, 2, 1, 3, 2, 0.4, 0.3),
+    (9, 33, 4, 16, 2, 2, 2, 1, 3, 0.4, 0.1),
+    (5, 15, 4, 16, 3, 2, 2, 2, 2, 0.4, 0.0),
+    (13, 17, 4, 16, 3, 4, 2, 3, 3, 0.3, 0.7),
+]
+
+
+@pytest.mark.parametrize("n,m,tr,tc,k,rpt,kw,burn,epochs,w,b", TILED)
+def test_tiled_schedule_matches_reference(n, m, tr, tc, k, rpt, kw, burn,
+                                          epochs, w, b):
+    """The kernel's decomposition (tiles with their halos, k sweeps a
+    chunk, tallies per chunk) == grid_gibbs_reference, x and count,
+    tolerance 0."""
+    x0 = torch.as_tensor(_x0(n, m, seed=n + 7 * m))
+    plan = sk.make_plan(tr, tc, k, rpt, kw, burn + epochs)
+    x, c = _tiled_emulation(x0, 3, burn, epochs, n, m, w, b, plan)
+    x_r, c_r = sk.grid_gibbs_reference(x0, 3, burn, epochs, n=n, m=m,
+                                       weight=w, bias=b)
+    assert torch.equal(x, x_r) and torch.equal(c, c_r)
+
+
+def test_tiled_schedule_needs_a_halo():
+    """Without the halo (the ghost ring alone) the tiles go wrong: the
+    redundant updates are what makes the schedule exact."""
+    n, m = 16, 16
+    x0 = torch.as_tensor(_x0(n, m, seed=5))
+    plan = sk.make_plan(4, 8, 3, 2, 1, 6)
+    x_r, c_r = sk.grid_gibbs_reference(x0, 3, 0, 6, n=n, m=m, weight=0.4,
+                                       bias=0.0)
+    x, c = _tiled_emulation(x0, 3, 0, 6, n, m, 0.4, 0.0, plan,
+                            halos=(0, 0, 0, 0))
+    assert not (torch.equal(x, x_r) and torch.equal(c, c_r))
+
+
+@pytest.mark.parametrize("n,m,sweeps", [
+    (1, 1, 1), (1, 70000, 3), (70000, 3, 3), (1024, 1024, 250),
+    (2048, 2048, 40), (8192, 8192, 25), (129, 63, 7), (5000, 4099, 9)])
+def test_plan_tiles_cover_every_cell_once(n, m, sweeps):
+    """The plan's tiles cover every cell exactly once; k divides the
+    sweeps into ``launches`` chunks; the window fits the kernel."""
+    plan = sk.lattice_plan(n, m, sweeps)
+    hits = np.zeros((n, m), dtype=np.int32)
+    for r0, c0, r1, c1 in plan.tiles(n, m):
+        assert r0 < r1 and c0 < c1
+        hits[r0:r1, c0:c1] += 1
+    assert (hits == 1).all()
+    assert plan.launches == -(-sweeps // plan.k) and plan.k <= sweeps
+    above, below, left, right = plan.halos
+    cols = 8 * plan.words_per_thread
+    assert above == 2 * plan.k and below >= 2 * plan.k and \
+        left == right >= 2 * plan.k and left % cols == 0
+    threads, strips = plan.block
+    assert plan.tile_cols % cols == 0 and threads * strips <= sk.MAX_THREADS
+    assert plan.shared_bytes <= sk.MAX_SHARED_BYTES
+
+
+class _FakeLib:
+    """Stands in for the built library on the CPU: records each call and
+    counts the launches its chunk loop would make."""
+    def __init__(self):
+        self.calls = []
+
+    def nsx_stencil_gibbs(self, *args):
+        burn, epochs, k = args[10], args[11], args[14]
+        assert args[15] >= 1 and args[16] in (1, 2)   # rows, words a thread
+        self.calls.append(-(-(burn + epochs) // k))
+        return 0
+
+
+@pytest.mark.parametrize("n,m,burn,epochs", [
+    (1024, 1024, 50, 200), (8192, 8192, 0, 25), (33, 17, 3, 4),
+    (3, 70000, 1, 2), (16, 16, 2, 0)])
+def test_wrapper_adds_the_plans_launches(monkeypatch, n, m, burn, epochs):
+    """_launch adds plan.launches to STENCIL_LAUNCHES, the number of
+    chunks the library's loop launches for the plan's k."""
+    fake = _FakeLib()
+    monkeypatch.setattr(sk, "_kernel_lib", lambda: fake)
+    monkeypatch.setattr(sk, "_stream", lambda dev: None)
+    monkeypatch.setattr(sk, "STENCIL_LAUNCHES", 0)
+    plan = sk.lattice_plan(n, m, burn + epochs)
+    x = torch.zeros((n, m), dtype=torch.int32)
+    sk._launch(x, 1, burn, epochs, n, m, 0.3, 0.0, plan)
+    assert fake.calls == [plan.launches]
+    assert sk.STENCIL_LAUNCHES == plan.launches
+
+
+def test_wrapper_refuses_values_beyond_0_and_1(monkeypatch):
+    """A CUDA-bound call whose x holds a value other than 0 or 1 raises
+    ValueError before anything launches (the check, on the CPU)."""
+    fake = _FakeLib()
+    monkeypatch.setattr(sk, "_kernel_lib", lambda: fake)
+    monkeypatch.setattr(sk, "_stream", lambda dev: None)
+    monkeypatch.setattr(sk, "STENCIL_LAUNCHES", 0)
+    for bad in (2, -1, 1 << 30):
+        x = torch.zeros((6, 6), dtype=torch.int32)
+        x[3, 4] = bad
+        with pytest.raises(ValueError, match="0 and 1"):
+            sk._launch(x, 1, 1, 2, 6, 6, 0.3, 0.0, sk.lattice_plan(6, 6, 3))
+    assert fake.calls == [] and sk.STENCIL_LAUNCHES == 0
+    sk.check_binary(torch.tensor([[0, 1], [1, 0]], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("w,b", [(0.3, 0.0), (0.4, 0.3), (-30.0, 0.0),
+                                 (1.234567, -0.7)])
+def test_draw_threshold_is_exact(w, b):
+    """The kernel draws q < T[level] in place of u * (1 + exp(-dpot)) < 1
+    (u = q * 2^-24, q the hash's 24 bits): for every q and every level
+    the two agree, with T found by the kernel's bisection (exp here is
+    torch's, the kernel's is expf: the claim is the monotone prefix)."""
+    tw, tb = sk.two_w_b(w, b)
+    u = torch.arange(1 << 24, dtype=torch.int32).float() * (1.0 / (1 << 24))
+    for level in range(-4, 5):
+        dpot = sk.fma32(tw, float(level), tb)
+        opz = (1.0 + torch.exp(-dpot)).float()
+        lo, hi = 0, 1 << 24
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if float(u[mid] * opz) < 1.0:
+                lo = mid + 1
+            else:
+                hi = mid
+        draws = u * opz < 1.0
+        assert int(draws.sum()) == lo and bool(draws[:lo].all())
