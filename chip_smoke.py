@@ -118,15 +118,19 @@ Phases (each one that fails exits non-zero; nothing is retried):
    10``): both files written, one fallback counted with its warning,
    the tensor-op engine's tensors on the card, no sweep or learn kernel
    launched. (b) ``gather_sum`` and ``shifted_sum`` (TPU kernels #10 and
-   #11) against their plain versions bit for bit in every TPU mode at
-   the TPU scripts' shapes, and at the sweep kernel's sizes: R =
-   1,048,576 outputs of 59 gathers from a 4 MB x (A) and a 256 MB x (B),
-   and span-8 shifts of a 256 MB window, with kernel, plain and
-   ``embedding_bag`` times and the bound; the time at 2k iterations
-   must be 1.8-2.2x the time at k (a hoisted loop fails). (c) The seven
-   drivers of ``numbskull_tpu_torch/experiments`` at a smoke size, their
-   TSVs checked (columns, ``ok``, ``engine``): the main path of both
-   gather kernels.
+   #11): every kernel's registers and local memory (any spill fails);
+   both against their plain versions bit for bit in every TPU mode at
+   the TPU scripts' shapes, at ragged R (1, 1023, 4097) with the window
+   staged in shared memory and not, and at the sweep kernel's sizes: R
+   = 1,048,576 outputs of 59 gathers from a 4 MB x (A) and a 256 MB x
+   (B), and span-8 shifts of a 256 MB window, with kernel, plain and
+   ``embedding_bag`` times, the bound, B's sector bound and span 8's
+   no-reuse time (every window once from device memory);
+   the time at 2k iterations must be 1.8-2.2x the time at k, k doubled
+   from 1000 until the call at k takes 1 ms (a hoisted loop fails). (c)
+   Eight drivers of ``numbskull_tpu_torch/experiments`` (M6's seven
+   and ``gather_rates``) at a smoke size, their TSVs checked (columns,
+   ``ok``, ``engine``): the main path of both gather kernels.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -201,12 +205,19 @@ SWEEP_EXT = {"name": "itemgrid_sweep_ext", "route": "cuda",
 LEARN_EXT = {"name": "itemgrid_learn_ext", "route": "cuda",
              "source": "numbskull_tpu_torch/csrc/itemgrid_learn.cu",
              "replaces": "numbskull_tpu/ops/itemgrid_pallas.py:2351"}
+GATHERED = "redesigned: index loads batched ahead of the gathers, an " \
+    "output's terms split over a block where R is small, shifts sorted"
 GATHER = {"name": "gather_sum", "route": "cuda",
           "source": "numbskull_tpu_torch/csrc/gather_bench.cu",
-          "replaces": "experiments/micro_gather.py:39"}
+          "replaces": "experiments/micro_gather.py:39", "status": GATHERED}
 SHIFTED = {"name": "shifted_sum", "route": "cuda",
            "source": "numbskull_tpu_torch/csrc/gather_bench.cu",
-           "replaces": "experiments/micro_gather2.py:34"}
+           "replaces": "experiments/micro_gather2.py:34", "status": GATHERED}
+# phase 10 (b)'s ragged rows: R on both paths (a window staged in shared
+# memory, and one of GATHER_GLOBAL_NX floats beyond it), ng and iters
+GATHER_RAGGED_R = (1, 1023, 4097)
+GATHER_GLOBAL_NX = 1 << 20
+GATHER_RAGGED = ((59, 1), (59, 3), (4, 2))
 VOTE_EPOCHS = 10         # phase 10's 301-color graph: 301 tensor-op
 #                          color steps per epoch
 BSP_PARTS = 4            # phase 9's parts on the 1M Ising
@@ -311,12 +322,12 @@ def phase_device(torch):
         log("  %s: nvcc %s" % (name, "%.2f s" % info["seconds"] if info
                                else "cached"))
         if info:
-            # the sweep, learn and lattice kernels' whole report (entry,
-            # registers, shared memory, spills), the others' register and
-            # spill lines
+            # the sweep, learn, lattice and gather kernels' whole report
+            # (entry, registers, shared memory, spills), the others'
+            # register and spill lines
             for line in info["ptxas"].splitlines():
                 if name in ("itemgrid_sweep", "itemgrid_learn",
-                            "stencil_gibbs") or \
+                            "stencil_gibbs", "gather_bench") or \
                         "registers" in line or "spill" in line:
                     log("    ptxas: " + line.strip())
     log("  " + sweep_resources())
@@ -2230,16 +2241,82 @@ def _row(row) -> dict:
     return dict(zip(HEADER, row))
 
 
+def gather_resources():
+    """The gather kernels' registers and local memory per thread (spills
+    and local arrays) as the loaded module reports them
+    (cudaFuncGetAttributes): logged once; fails on any local memory."""
+    from numbskull_tpu_torch.ops import gather as G
+    lib = G._kernel_lib()
+    out, spilled = [], []
+    for which, name in enumerate(G.GATHER_KERNELS):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = lib.nsx_gather_attrs(which, ctypes.byref(regs),
+                                  ctypes.byref(local))
+        if rc != 0:
+            fail("cudaFuncGetAttributes of %s: CUDA error %d" % (name, rc))
+        out.append("%s %d registers, %d B local" % (name, regs.value,
+                                                    local.value))
+        if local.value:
+            spilled.append(name)
+    log("    gather kernels: " + "; ".join(out))
+    if spilled:
+        fail("gather kernels spill to local memory: %s" % spilled)
+
+
+def _gather_ragged(torch, dev):
+    """Phase 10 (b): both kernels at ragged R (GATHER_RAGGED_R) on both
+    paths, bit-equal to their plain versions; returns the largest
+    difference of each kernel."""
+    from numbskull_tpu_torch.ops import gather as G
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {"gather_sum": 0.0, "shifted_sum": 0.0}
+    n = 0
+    for R in GATHER_RAGGED_R:
+        for ng, iters in GATHER_RAGGED:
+            for form, span in (("gather_sum", 1), ("shifted_sum", 1),
+                               ("shifted_sum", 8)):
+                for nx in (R * span + 4096, GATHER_GLOBAL_NX + R * span):
+                    plan = G.gather_plan(form, R, ng, span, iters, nx)
+                    if plan.staged != (nx < GATHER_GLOBAL_NX):
+                        fail("gather plan %s for nx %d" % (plan, nx))
+                    x = torch.randint(0, 2, (nx,), generator=gen,
+                                      device=dev, dtype=torch.float32)
+                    if form == "gather_sum":
+                        off = torch.randint(0, nx, (ng, R), generator=gen,
+                                            device=dev, dtype=torch.int32)
+                        got = G.gather_sum(x, off, iters)
+                        want = G.gather_sum_reference(x, off, iters)
+                    else:
+                        sh = torch.randint(0, nx - R * span + 1, (ng,),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)
+                        got = G.shifted_sum(x, sh, R, span, iters)
+                        want = G.shifted_sum_reference(x, sh, R, span,
+                                                       iters)
+                    n += 1
+                    if not torch.equal(got, want):
+                        fail("%s R %d ng %d span %d iters %d nx %d (%s): "
+                             "kernel differs from the plain version"
+                             % (form, R, ng, span, iters, nx,
+                                "staged" if plan.staged else "global"))
+                    err[form] = max(err[form],
+                                    float((got - want).abs().max()))
+    log("  (b) ragged R %s, ng and iters %s, both paths: %d rows bit-equal "
+        "to the plain versions" % (GATHER_RAGGED_R, GATHER_RAGGED, n))
+    return err
+
+
 def _gather_compare(torch):
     """Phase 10 (b): both gather kernels against their plain versions at
-    the TPU scripts' shapes and at the sweep kernel's sizes, and the
-    iters scaling. Returns {row name: row dict} of the sizes, and the
-    largest difference of each kernel."""
+    the TPU scripts' shapes, at ragged R and at the sweep kernel's sizes,
+    their registers, and the iters scaling. Returns {row name: row dict}
+    of the sizes, and the largest difference of each kernel."""
     from numbskull_tpu_torch.benchutil import median_ms
     from numbskull_tpu_torch.experiments import micro_gather as mg
     from numbskull_tpu_torch.experiments import micro_gather2 as mg2
     from numbskull_tpu_torch.ops import gather as G
     dev = torch.device(DEVICE)
+    gather_resources()
     t0 = time.perf_counter()
     rows = [_row(mg.run_mode(m, trw, it, ng, 8, dev, timed=False))
             for trw, it, ng in mg.VALIDATE for m in mg.MODES]
@@ -2255,21 +2332,27 @@ def _gather_compare(torch):
         % (len(rows) - len(bad), len(rows), time.perf_counter() - t0))
     if bad:
         fail("gather kernels differ from their plain versions: %s" % bad)
-    err = {"gather_sum": 0.0, "shifted_sum": 0.0}
+    err = _gather_ragged(torch, dev)
     for r in rows:
         form = r["gpu_form"].split()[0]
         err[form] = max(err[form], float(r["max_abs_err"]))
 
+    # k doubles from 1000 while the call at k is short enough for the
+    # host's share of a call to matter, and 2k iterations stay exact
     x, off, shift = mg.tpu_data(16, 16, 64)
     xt = torch.as_tensor(x, device=dev)
     offt = torch.as_tensor(off, device=dev)
     sh = torch.as_tensor(shift[:16], device=dev)
-    k = 1000
-    for label, fn in (
-            ("gather_sum", lambda it: G.gather_sum(xt, offt, it, False)),
-            ("shifted_sum span 8", lambda it: G.shifted_sum(
+    for label, span, fn in (
+            ("gather_sum", 1,
+             lambda it: G.gather_sum(xt, offt, it, False)),
+            ("shifted_sum span 8", 8, lambda it: G.shifted_sum(
                 xt, sh, 1024, 8, it, False))):
+        k = 1000
         t_k = median_ms(lambda: fn(k), dev)[0]
+        while t_k < 1.0 and 4 * k * 16 * span < 1 << 24:
+            k *= 2
+            t_k = median_ms(lambda: fn(k), dev)[0]
         t_2k = median_ms(lambda: fn(2 * k), dev)[0]
         log("    iters scaling, %s at trw 16, ng 16: %.4f ms at %d, %.4f "
             "ms at %d: x%.3f" % (label, t_k, k, t_2k, 2 * k, t_2k / t_k))
@@ -2290,11 +2373,13 @@ def _gather_compare(torch):
         err[form] = max(err[form], float(r["max_abs_err"]))
         log("    %-11s %s, R %s, ng %s, x %s B: kernel %s ms (spread %s), "
             "plain %s, embedding_bag %s, bound %s (%s; %s of it), sector "
-            "bound %s; equal %s" % (
+            "bound %s (%s of it), no-reuse time %s; equal %s" % (
                 name, r["gpu_form"], r["R"], r["ng"], r["x_bytes"], r["ms"],
                 r["spread_ms"], r["plain_ms"], r["library_ms"],
                 r["bound_ms"], r["bound_by"], r["bound_share"],
-                r["sector_bound_ms"], r["ok"]))
+                r["sector_bound_ms"], "-" if r["sector_bound_ms"] == "-"
+                else "%.4f" % (float(r["sector_bound_ms"]) / float(r["ms"])),
+                r["noreuse_ms"], r["ok"]))
         if not r["ok"]:
             fail("%s: kernel, plain version and embedding_bag differ"
                  % name)
@@ -2303,12 +2388,12 @@ def _gather_compare(torch):
 
 
 def _smoke_drivers(torch, workdir):
-    """Phase 10 (c): the seven drivers at a smoke size, their TSVs
+    """Phase 10 (c): the eight drivers at a smoke size, their TSVs
     checked. The gather kernels' launch counts are set to 0 just before
     and read just after."""
     from numbskull_tpu_torch.experiments import (
-        common, degree_sweep, engine_tradeoff, hbm_scale, micro_gather,
-        micro_gather2, micro_gather_xla, profile_itemgrid)
+        common, degree_sweep, engine_tradeoff, gather_rates, hbm_scale,
+        micro_gather, micro_gather2, micro_gather_xla, profile_itemgrid)
     from numbskull_tpu_torch.ops import gather as G
     runs = (
         ("micro_gather", lambda p: micro_gather.run(
@@ -2327,7 +2412,12 @@ def _smoke_drivers(torch, workdir):
         ("engine_tradeoff", lambda p: engine_tradeoff.run(
             p, DEVICE, scale=0.05, epochs=8)),
         ("profile_itemgrid", lambda p: profile_itemgrid.run(
-            p, 256, 20, DEVICE, scale=0.05)))
+            p, 256, 20, DEVICE, scale=0.05)),
+        ("gather_rates", lambda p: gather_rates.run(
+            p, DEVICE, sizes=(("sweep_A", 1 << 20), ("sweep_B", 1 << 24)),
+            sweep_r=1 << 16, span_nx=1 << 24,
+            timing=(("f32_row", 16, 200, 16), ("roll", 16, 200, 16)),
+            timing2=((16, 200, 16),), calls=3)))
     G.GATHER_LAUNCHES = G.SHIFTED_LAUNCHES = 0
     for name, fn in runs:
         t0 = time.perf_counter()

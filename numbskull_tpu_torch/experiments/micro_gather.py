@@ -18,13 +18,18 @@ the sweep's values) and (B) one of 67,108,864 (256 MB, beyond the 50 MB
 L2): the kernel's, the plain version's and ``embedding_bag``'s times and
 the bound. The bound counts the offsets, the distinct x values gathered
 and the output once each; ``sector_bound_ms`` (B only) charges every
-random gather the 32-byte sector it fetches from device memory.
+random gather the 32-byte sector it fetches from device memory;
+``noreuse_ms`` (``micro_gather2``'s span-8 row only) reads every (g, j)
+window once from device memory: the time of a kernel that reuses no
+window through the L2, a reference and not a bound (sorted shifts read
+the windows' overlaps from the L2 and run under it).
 
 Columns: the TPU script's ``mode gpu_form trw ng iters ok ms
 Gvals_per_s``, then ``R x_bytes x_in spread_ms plain_ms library_ms
-bound_ms bound_by bound_share sector_bound_ms max_abs_err`` ('-' where
-one does not apply; ``x_in``: where the kernel reads x, shared memory or
-global; ``max_abs_err``: the kernel against the plain version and the
+bound_ms bound_by bound_share sector_bound_ms noreuse_ms
+max_abs_err`` ('-' where one does not apply; ``x_in``: where the kernel
+reads x, shared memory or global, as ``ops/gather.gather_plan`` stages
+it; ``max_abs_err``: the kernel against the plain version and the
 library call).
 
 Usage: python -m numbskull_tpu_torch.experiments.micro_gather [out.tsv]
@@ -53,7 +58,7 @@ SWEEP_X = (("sweep_A", 1 << 20), ("sweep_B", 1 << 26))
 HEADER = ["mode", "gpu_form", "trw", "ng", "iters", "ok", "ms",
           "Gvals_per_s", "R", "x_bytes", "x_in", "spread_ms", "plain_ms",
           "library_ms", "bound_ms", "bound_by", "bound_share",
-          "sector_bound_ms", "max_abs_err"]
+          "sector_bound_ms", "noreuse_ms", "max_abs_err"]
 
 
 def tpu_data(trw: int, ng: int, pad: int, seed: int = 0) -> tuple:
@@ -88,10 +93,14 @@ def form_label(form: str, span: int) -> str:
     return form if form == "gather_sum" else "%s span %d" % (form, span)
 
 
-def x_in(nbytes: int, device) -> str:
+def x_in(form: str, R: int, ng: int, span: int, iters: int, nx: int,
+         device) -> str:
+    """Where the kernel reads x on the card: "shared" where the plan
+    stages the window, else "global"; "-" off the card."""
     if torch.device(device).type != "cuda":
         return "-"
-    return "shared" if nbytes <= G.SHARED_MAX_BYTES else "global"
+    staged = G.gather_plan(form, R, ng, span, iters, nx).staged
+    return "shared" if staged else "global"
 
 
 def run_mode(mode: str, trw: int, iters: int, ng: int, pad: int,
@@ -125,17 +134,17 @@ def run_mode(mode: str, trw: int, iters: int, ng: int, pad: int,
         gvals = "%.4g" % (RB * ng * span * iters / ms / 1e6)
         ms, spread = "%.5f" % ms, "%.5f" % spread
     return [mode, form_label(form, span), trw, ng, iters, ok, ms, gvals, RB,
-            x.nbytes, x_in(x.nbytes, device), spread, "-", "-", "-", "-",
-            "-", "-", err]
+            x.nbytes, x_in(form, RB, ng, span, iters, x.size, device),
+            spread, "-", "-", "-", "-", "-", "-", "-", err]
 
 
 def timed_row(name: str, form: str, span: int, x, iters: int, R: int,
               ng: int, kernel, plain, library, nbytes: int,
-              sector_bytes, device) -> list:
+              sector_bytes, device, noreuse_bytes=None) -> list:
     """One TSV row at a size of the sweep kernel: kernel, plain version
     and library call equal bit for bit, their median times, the bound
     (``nbytes`` and one add per gather) and, when given, the sector
-    bound."""
+    bound and the no-reuse time."""
     out = kernel(True)
     ref, lib = plain(), library()
     ok = bool(torch.equal(out, ref) and torch.equal(out, lib))
@@ -145,14 +154,14 @@ def timed_row(name: str, form: str, span: int, x, iters: int, R: int,
     plain_ms, _ = median_ms(plain, device)
     lib_ms, _ = median_ms(library, device)
     bnd, by = common.bound_ms(nbytes, R * ng * span * iters)
-    sector = "-" if sector_bytes is None else \
-        "%.5f" % (sector_bytes / common.H100_BYTES_PER_S * 1e3)
-    nb = x.numel() * 4
+    sector, noreuse = ("-" if b is None else
+                       "%.5f" % (b / common.H100_BYTES_PER_S * 1e3)
+                       for b in (sector_bytes, noreuse_bytes))
     return [name, form_label(form, span), "-", ng, iters, ok, "%.5f" % ms,
-            "%.4g" % (R * ng * span * iters / ms / 1e6), R, nb,
-            x_in(nb, device), "%.5f" % spread, "%.5f" % plain_ms,
-            "%.5f" % lib_ms, "%.5f" % bnd, by, "%.4f" % (bnd / ms), sector,
-            err]
+            "%.4g" % (R * ng * span * iters / ms / 1e6), R, x.numel() * 4,
+            x_in(form, R, ng, span, iters, x.numel(), device),
+            "%.5f" % spread, "%.5f" % plain_ms, "%.5f" % lib_ms,
+            "%.5f" % bnd, by, "%.4f" % (bnd / ms), sector, noreuse, err]
 
 
 def random_window(nx: int, device, gen) -> torch.Tensor:

@@ -12,8 +12,11 @@ ng=4, then at its timing shape (trw=16, iters=2000, ng=16). Then
 ng = 59 shifts of a 256 MB window (67,108,864 floats): the kernel's,
 the plain version's and ``embedding_bag``'s times (the library call
 gathers through the 472 x R offsets the shifts expand to, made outside
-the timed region) and the bound, which counts the shifts, the output
-and the union of the windows the shifts read once each.
+the timed region), the bound, which counts the shifts, the output and
+the union of the windows the shifts read once each, and the no-reuse
+time, which reads every (g, j) window once from device memory with the
+shifts and the output (a reference: the kernel reads the windows'
+overlaps from the L2).
 
 Columns as ``micro_gather``'s.
 
@@ -62,7 +65,8 @@ def sweep_shifted_row(name: str, nx: int, R: int, ng: int, span: int,
         lambda validate: G.shifted_sum(x, shift, R, span, 1,
                                        validate=validate),
         lambda: G.shifted_sum_reference(x, shift, R, span, 1),
-        lambda: G.library_gather_sum(x, off_t, 1), nbytes, None, device)
+        lambda: G.library_gather_sum(x, off_t, 1), nbytes, None, device,
+        noreuse_bytes=4 * ng * span * R + 4 * ng + 4 * R)
 
 
 def run(out_path: str = "micro_gather2.tsv", device="cuda",

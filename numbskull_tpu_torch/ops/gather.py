@@ -19,17 +19,23 @@ The TPU script's shapes have ``R = 1024``; both functions take any
 
 CPU tensors run the plain versions (:func:`gather_sum_reference`,
 :func:`shifted_sum_reference`); CUDA tensors launch
-``csrc/gather_bench.cu`` or raise. :func:`library_gather_sum` is one
-PyTorch call computing the same function (``embedding_bag``), a
-yardstick that no main path calls. With 0/1 values every sum is an
-integer, exact in float32 while ``iters * ng * span < 2**24``: the
-kernels, the plain versions and the library call then agree bit for
-bit.
+``csrc/gather_bench.cu`` or raise, with the plan :func:`gather_plan`
+makes from the shapes: the window staged in shared memory where it
+fits, a batch of index loads ahead of their gathers, an output's ``(it,
+g)`` terms split over several threads where R alone cannot fill the
+card; the shifted kernel walks its shifts in ascending order.
+:func:`library_gather_sum` is one PyTorch call computing the same
+function (``embedding_bag``), a yardstick that no main path calls. With
+0/1 values every sum is an integer, exact in float32 while ``iters * ng
+* span < 2**24``: the kernels, the plain versions and the library call
+then agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,14 +50,130 @@ TPU_MODES = {
     "roll_unr": ("shifted_sum", 1), "roll64": ("shifted_sum", 8),
 }
 
-#: windows up to this many bytes are staged in shared memory
-#: (kSharedMaxBytes of csrc/gather_bench.cu)
+#: the shared memory a block may use (kSharedMaxBytes of
+#: csrc/gather_bench.cu)
 SHARED_MAX_BYTES = 232448
+#: the layout csrc/gather_bench.cu compiles in: both kernels' block
+#: (kBlock), outputs a thread on the staged and the global path, the
+#: batch of g's whose index loads go ahead of their gathers where one is
+#: (kGatherBatch), and the shifts staged, and sorted, at a time
+#: (kShiftChunk). The plan computes with them; the kernels take only the
+#: plan's two decisions, ``staged`` and ``shares``
+THREADS = 256
+OUTPUTS = {("gather_sum", True): 4, ("gather_sum", False): 1,
+           ("shifted_sum", True): 4, ("shifted_sum", False): 4}
+GATHER_BATCH = 8
+SHIFT_CHUNK = THREADS
+#: the threads a plan aims to start where R alone cannot fill the card:
+#: a block of 256 a streaming multiprocessor of the H100
+CARD_THREADS = 132 * 256
+#: the kernels as nsx_gather_attrs numbers them
+GATHER_KERNELS = (
+    "gather_sum_kernel<staged>", "gather_sum_kernel<global>",
+    "shifted_sum_kernel<staged, span 1>",
+    "shifted_sum_kernel<staged, span 8>",
+    "shifted_sum_kernel<staged, runtime span>",
+    "shifted_sum_kernel<span 1>", "shifted_sum_kernel<span 8>",
+    "shifted_sum_kernel<runtime span>")
 
 #: launches of the CUDA gather_sum and shifted_sum kernels in this
 #: process; each wrapper adds one where it launches and nowhere else
 GATHER_LAUNCHES = 0
 SHIFTED_LAUNCHES = 0
+
+
+class GatherPlan(NamedTuple):
+    """How one call runs on the card. ``threads`` threads a block,
+    ``shares`` of them (a power of two) on each of its ``cols`` columns;
+    a column holds ``outputs`` outputs, consecutive when ``vector`` (a
+    staged gather_sum: one 16-byte index load a g), else ``cols`` apart;
+    the shares of a column split its outputs' ``(it, g)`` terms (share s
+    takes every ``shares``-th, from s) and add their sums in a fixed tree
+    in shared memory. ``batch`` g's have their index loads issued before their
+    gathers. ``staged``: the window, and the block's columns of ``off``
+    (gather_sum), sit in shared memory; shifted_sum stages its shifts on
+    either path. ``blocks`` blocks cover R; ``shared_bytes`` of dynamic
+    shared memory a block."""
+    form: str
+    staged: bool
+    outputs: int
+    shares: int
+    batch: int
+    threads: int
+    blocks: int
+    shared_bytes: int
+
+    @property
+    def vector(self) -> bool:
+        return self.form == "gather_sum" and self.staged
+
+    @property
+    def cols(self) -> int:
+        return self.threads // self.shares
+
+    @property
+    def block_outputs(self) -> int:
+        return self.cols * self.outputs
+
+    def thread_outputs(self, block: int, tid: int) -> list:
+        """The outputs thread ``tid`` of block ``block`` sums (those >= R
+        are summed and never stored)."""
+        q, r0 = tid % self.cols, block * self.block_outputs
+        if self.vector:
+            return [r0 + self.outputs * q + k for k in range(self.outputs)]
+        return [r0 + q + self.cols * k for k in range(self.outputs)]
+
+    def share_terms(self, s: int, ng: int, iters: int) -> list:
+        """The ``(it, g)`` terms share ``s`` adds, in its order: every
+        ``shares``-th of the sequence ``it * ng + g`` from s. shifted_sum
+        runs the sequence of each chunk of SHIFT_CHUNK shifts, and there
+        ``g`` is chunk start + the shift's rank in its chunk (ascending,
+        ties in order)."""
+        chunk = SHIFT_CHUNK if self.form == "shifted_sum" else max(ng, 1)
+        terms = []
+        for g0 in range(0, ng, chunk):
+            n = min(chunk, ng - g0)
+            terms += [(t // n, g0 + t % n)
+                      for t in range(s, iters * n, self.shares)]
+        return terms
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(form: str, R: int, ng: int, span: int, iters: int,
+                nx: int) -> GatherPlan:
+    """The plan of a ``form`` call ("gather_sum" or "shifted_sum") of R
+    outputs, ng gathers or shifts of ``span`` blocks, ``iters`` times,
+    from a window of nx floats. Shares double while the grid stays
+    within CARD_THREADS and each share keeps at least two batches of
+    terms; the window is staged exactly where the staged layout (the
+    window, the staged indices, the partial sums) fits."""
+    if form not in ("gather_sum", "shifted_sum"):
+        raise ValueError("gather_plan: unknown form %r" % (form,))
+    if R < 1 or ng < 0 or span < 1 or iters < 0 or nx < 1:
+        raise ValueError("gather_plan: R %d, ng %d, span %d, iters %d, nx "
+                         "%d: want R, span, nx >= 1 and ng, iters >= 0"
+                         % (R, ng, span, iters, nx))
+    threads = THREADS
+
+    def layout(staged):
+        outputs = OUTPUTS[form, staged]
+        batch = GATHER_BATCH if form == "gather_sum" or span == 1 else 1
+        cols = -(-R // outputs)
+        shares = 1
+        while shares < threads and 2 * shares * cols <= CARD_THREADS and \
+                iters * ng >= 4 * shares * batch:
+            shares *= 2
+        per_block = threads // shares * outputs
+        partials = threads * outputs if shares > 1 else 0
+        if form == "gather_sum":
+            words = ng * per_block + nx if staged else 0
+        else:
+            words = min(ng, SHIFT_CHUNK) + (nx if staged else 0)
+        return GatherPlan(form, staged, outputs, shares, batch, threads,
+                          -(-R // per_block), 4 * (words + partials))
+
+    plan = layout(True)
+    return plan if plan.shared_bytes <= SHARED_MAX_BYTES else layout(False)
 
 
 def _window(x: torch.Tensor) -> torch.Tensor:
@@ -134,9 +256,11 @@ def _kernel_lib():
         lib = load_library("gather_bench")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.nsx_gather_sum.restype = ctypes.c_int
-        lib.nsx_gather_sum.argtypes = [P, L, P, P, I, I, I, P]
+        lib.nsx_gather_sum.argtypes = [P, L, P, P, I, I, I, I, I, P]
         lib.nsx_shifted_sum.restype = ctypes.c_int
-        lib.nsx_shifted_sum.argtypes = [P, L, P, P, I, I, I, I, P]
+        lib.nsx_shifted_sum.argtypes = [P, L, P, P, I, I, I, I, I, I, P]
+        lib.nsx_gather_attrs.restype = ctypes.c_int
+        lib.nsx_gather_attrs.argtypes = [I, P, P]
         _LIB.append(lib)
     return _LIB[0]
 
@@ -154,7 +278,6 @@ def gather_sum(x: torch.Tensor, off: torch.Tensor, iters: int,
     the kernel (errors raise). ``validate=False`` skips the range check
     of ``off`` (a reduction and a device-to-host copy), for timing loops
     over offsets checked once before."""
-    global GATHER_LAUNCHES
     xf = _window(x)
     if iters < 0:
         raise ValueError("iters %d < 0" % iters)
@@ -164,11 +287,20 @@ def gather_sum(x: torch.Tensor, off: torch.Tensor, iters: int,
         _check("off", off, torch.int32, x.device)
     if _device_of(x, "gather_sum") == "cpu":
         return gather_sum_reference(xf, off, iters)
+    return _launch_gather_sum(xf, off, iters)
+
+
+def _launch_gather_sum(xf: torch.Tensor, off: torch.Tensor,
+                       iters: int) -> torch.Tensor:
+    """One launch of the gather_sum kernel with its plan, counted."""
+    global GATHER_LAUNCHES
     ng, R = off.shape
-    out = torch.empty(R, dtype=torch.float32, device=x.device)
+    plan = gather_plan("gather_sum", R, ng, 1, iters, xf.numel())
+    out = torch.empty(R, dtype=torch.float32, device=xf.device)
     _raise_if(_kernel_lib().nsx_gather_sum(
         _ptr(xf), xf.numel(), _ptr(off), _ptr(out), R, ng, iters,
-        _stream(x.device)), "gather_sum kernel")
+        int(plan.staged), plan.shares, _stream(xf.device)),
+        "gather_sum kernel")
     GATHER_LAUNCHES += 1
     return out
 
@@ -179,7 +311,6 @@ def shifted_sum(x: torch.Tensor, shift: torch.Tensor, R: int, span: int,
     an (R,) float32 tensor on x's device. CPU tensors run the plain
     version; CUDA tensors launch the kernel (errors raise).
     ``validate=False`` skips the range check of ``shift``."""
-    global SHIFTED_LAUNCHES
     xf = _window(x)
     if iters < 0:
         raise ValueError("iters %d < 0" % iters)
@@ -189,9 +320,19 @@ def shifted_sum(x: torch.Tensor, shift: torch.Tensor, R: int, span: int,
         _check("shift", shift, torch.int32, x.device)
     if _device_of(x, "shifted_sum") == "cpu":
         return shifted_sum_reference(xf, shift, R, span, iters)
-    out = torch.empty(R, dtype=torch.float32, device=x.device)
+    return _launch_shifted_sum(xf, shift, R, span, iters)
+
+
+def _launch_shifted_sum(xf: torch.Tensor, shift: torch.Tensor, R: int,
+                        span: int, iters: int) -> torch.Tensor:
+    """One launch of the shifted_sum kernel with its plan, counted."""
+    global SHIFTED_LAUNCHES
+    ng = shift.numel()
+    plan = gather_plan("shifted_sum", R, ng, span, iters, xf.numel())
+    out = torch.empty(R, dtype=torch.float32, device=xf.device)
     _raise_if(_kernel_lib().nsx_shifted_sum(
-        _ptr(xf), xf.numel(), _ptr(shift), _ptr(out), R, shift.numel(),
-        span, iters, _stream(x.device)), "shifted_sum kernel")
+        _ptr(xf), xf.numel(), _ptr(shift), _ptr(out), R, ng, span, iters,
+        int(plan.staged), plan.shares, _stream(xf.device)),
+        "shifted_sum kernel")
     SHIFTED_LAUNCHES += 1
     return out

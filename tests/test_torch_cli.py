@@ -239,7 +239,7 @@ def test_port_imports_no_jax():
             "for name in ('micro_gather', 'micro_gather2', "
             "'micro_gather_xla', 'degree_sweep', 'hbm_scale', "
             "'engine_tradeoff', 'profile_itemgrid', 'sweep_rates', "
-            "'lattice_rates', 'lattice_tiles'):\n"
+            "'lattice_rates', 'lattice_tiles', 'gather_rates'):\n"
             "    __import__('numbskull_tpu_torch.experiments.' + name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "

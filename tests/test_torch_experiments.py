@@ -12,7 +12,8 @@ import pytest
 
 from numbskull_tpu_torch import benchutil
 from numbskull_tpu_torch.experiments import (common, degree_sweep,
-                                             engine_tradeoff, hbm_scale,
+                                             engine_tradeoff, gather_rates,
+                                             hbm_scale,
                                              lattice_rates, lattice_tiles,
                                              micro_gather, micro_gather2,
                                              micro_gather_xla,
@@ -25,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MICRO = (["mode", "trw", "ng", "iters", "ok", "ms"],           # :150-151
          ["gpu_form", "Gvals_per_s", "R", "x_bytes", "x_in", "spread_ms",
           "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
-          "sector_bound_ms", "max_abs_err"])
+          "sector_bound_ms", "noreuse_ms", "max_abs_err"])
 COLUMNS = {
     "micro_gather": MICRO,
     "micro_gather2": MICRO,
@@ -44,6 +45,7 @@ COLUMNS = {
                           "epoch_ms", "busy_share", "median_gap_us"]),
     "sweep_rates": ([], sweep_rates.HEADER),    # no JAX counterpart
     "lattice_rates": ([], lattice_rates.HEADER),
+    "gather_rates": ([], gather_rates.HEADER),
 }
 
 RUNS = {
@@ -68,11 +70,29 @@ RUNS = {
                                              points=(1, 3)),
     "lattice_rates": lambda p: lattice_rates.run(p, "cpu", sides=(8, 12),
                                                  points=(1, 3)),
+    "gather_rates": lambda p: gather_rates.run(
+        p, "cpu", sizes=(("sweep_A", 4096), ("sweep_B", 1 << 14)),
+        sweep_r=2048, sweep_ng=5, span_nx=1 << 15,
+        timing=(("f32_row", 16, 3, 4), ("bf16_row", 16, 3, 4),
+                ("roll", 8, 3, 4)), timing2=((16, 3, 4),), calls=2),
 }
 
 
 def _number(s):
     return float(s) if s not in ("-", "") else None
+
+
+def test_gather_rates_label(tmp_path):
+    """``label`` (``--label``) fills the checkout column, so that the
+    turns against another checkout name themselves in their TSVs."""
+    path = str(tmp_path / "rates.tsv")
+    gather_rates.run(path, "cpu", sizes=(("sweep_A", 512),), sweep_r=64,
+                     sweep_ng=3, span_nx=1024, timing=(), timing2=(),
+                     calls=1, label="parent, turn 1")
+    _, _, rows = common.read_tsv(path)
+    assert [(r["row"], r["checkout"]) for r in rows] == [
+        ("sweep_A", "parent, turn 1"), ("sweep_span8", "parent, turn 1"),
+        ("span8_aligned", "parent, turn 1")]
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
@@ -114,6 +134,17 @@ def test_driver_writes_its_tsv(tmp_path, name):
         assert [(r["side"], r["cells"]) for r in rows] == \
             [("8", "64"), ("12", "144")]
         assert all(_number(r["sweep_ms"]) > 0 for r in rows)
+        assert {r["checkout"] for r in rows} == {REPO}
+    if name == "gather_rates":
+        assert [(r["row"], r["modes"]) for r in rows] == [
+            ("sweep_A", "-"), ("sweep_B", "-"), ("sweep_span8", "-"),
+            ("span8_aligned", "-"), ("tpu_trw16", "f32_row+bf16_row"),
+            ("tpu_trw8", "roll"), ("tpu_trw16", "roll64"),
+            ("tpu_trw16", "fact+take")]
+        assert [r["noreuse_ms"] != "-" for r in rows[:4]] == [
+            False, False, True, True]
+        assert all(_number(r["call_ms"]) > 0 and r["device_ms"] == "-"
+                   for r in rows)
         assert {r["checkout"] for r in rows} == {REPO}
     if name.startswith("micro_gather") and name != "micro_gather_xla":
         assert all(float(r["max_abs_err"]) == 0 for r in rows)
