@@ -131,6 +131,29 @@ Phases (each one that fails exits non-zero; nothing is retried):
    Eight drivers of ``numbskull_tpu_torch/experiments`` (M6's seven
    and ``gather_rates``) at a smoke size, their TSVs checked (columns,
    ``ok``, ``engine``): the main path of both gather kernels.
+11. Checkpoints, ``--engine xla``, the DB source, ``burnIn`` and the
+   profiler hooks, each path driven with the launch counts set to 0
+   just before it and read just after: (a) the CLI on the Ising of
+   phase 3 with ``-i 120 -b 10 --checkpoint --checkpoint_every 40``
+   (kernel #1), whole and interrupted at 80 then resumed: marginals file
+   and tallies bit-equal, the checkpoint's bytes and the seconds to save
+   and load it; (b) ``-l 120 -i 5`` the same way on the coin graph of
+   phase 4 (kernel #2): weights file and both chains bit-equal; (c)
+   ``--engine xla`` on the Ising (no kernel launched): in chunks of 40
+   == one call, bit for bit, marginals within Monte-Carlo error of (a)'s,
+   ms per epoch; (d) ``resilience.run_resilient`` on ``GibbsEngine`` on
+   the coin graph with faults at chunks 1 and 3 == the run without; (e)
+   the coin graph published with ``dbsource.write_graph_to_db`` to a
+   sqlite file, then ``-u sqlite://`` learning and inference == the run
+   of ``loadFactorGraph`` on ``get_fg_data``'s arrays, the DB load time;
+   (f) the coin graph keyed B / D1 with UFO flags on the straddling
+   factors: ``--parts 2 -u`` costs the keys and picks ``messages``, and
+   ``bsp_from_db(itemgrid=True)`` on the card (kernel #1 ``has_ext``)
+   == ``BSPItemGridInference`` on the same arrays and part through the
+   plain versions; (g) ``burnIn(3, True)`` on the card, a
+   ``observability.trace`` around one more chunk of (a) holding the
+   ``nsx.chunk`` region and the sweep kernel, and
+   ``device_memory_stats``.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -148,7 +171,8 @@ gather`` phases 1 and 10, ``python3 chip_smoke.py learn`` phases 1, 2
 (learning), 4, 5 (learning and LF inference) and 7, ``python3
 chip_smoke.py sweep`` phases 1, 2 (the sweep), 3 with the sweep's rates
 on its graph, and 7, ``python3 chip_smoke.py lattice`` phases 1, 2 (the
-lattice) and 6.
+lattice) and 6, ``python3 chip_smoke.py checkpoint`` phases 1 and 11,
+with a kernels line of kernels #1 and #2 from phase 11's own runs.
 """
 
 from __future__ import annotations
@@ -223,6 +247,8 @@ VOTE_EPOCHS = 10         # phase 10's 301-color graph: 301 tensor-op
 BSP_PARTS = 4            # phase 9's parts on the 1M Ising
 BSP_RUN = (3, 2, 10)     # phase 9's inference: seed, burn, epochs
 COIN_TRUTH = (0.8, -0.5, 0.4)
+CKPT = (120, 80, 40, 10)  # phase 11: epochs, interrupted at, chunk, burn-in
+CKPT_LEARN = ["-s", "0.1", "-d", "0.99", "-r", "1e-4"]
 LATTICE_W = 0.3          # bench.py:48 and :62, the lattice cells' weight
 LATTICES = (1024, 2048, 8192)    # bench.py:375, :381; 8192 beyond VMEM
 # (n, m, weight, bias, burn, epochs): odd and even sides, one row, one
@@ -2480,6 +2506,409 @@ def gather_records(g):
     return recs
 
 
+def _counts(pig):
+    """The sweep, learn and has_ext sweep kernels' launch counts."""
+    return (pig.KERNEL_LAUNCHES, pig.LEARN_LAUNCHES, pig.EXT_LAUNCHES)
+
+
+def _zero_counts(pig):
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = pig.EXT_LAUNCHES = 0
+
+
+def _outputs(out):
+    """The bytes of a CLI run's two output files."""
+    return [open(os.path.join(out, "inference_result.out" + s), "rb").read()
+            for s in (".text", ".weights.text")]
+
+
+def _cli_run(torch, argv):
+    """main(argv) on the card with its counts set to 0 just before;
+    returns (NumbSkull, wall s, launch counts, metrics snapshot)."""
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    metrics.reset()
+    _zero_counts(pig)
+    t0 = time.perf_counter()
+    ns = cli.main(argv + ["-q", "--device", DEVICE])
+    torch.cuda.synchronize()
+    return ns, time.perf_counter() - t0, _counts(pig), metrics.snapshot()
+
+
+def _ckpt_timing(snap) -> str:
+    tm = snap["timings"]
+    return ", ".join("%s %d x %.3f s" % (k, tm[k]["count"],
+                                          tm[k]["total_s"] / tm[k]["count"])
+                     for k in ("checkpoint.save_s", "checkpoint.load_s")
+                     if k in tm)
+
+
+def _ckpt_inference(torch, work, gdir, out):
+    """Phase 11 (a): checkpointed inference through kernel #1 on the 1M
+    Ising, whole and interrupted; (g) a trace around one more chunk."""
+    import json as _json
+
+    from numbskull_tpu_torch.observability import annotate, trace
+    epochs, cut, chunk, burn = CKPT
+    runs = {}
+    for name, n, ck in (("whole", epochs, "ck_a"), ("cut", cut, "ck_b"),
+                        ("resumed", epochs, "ck_b")):
+        dst = os.path.join(work, "ck_out_" + name)
+        ns, wall, launches, snap = _cli_run(torch, [
+            gdir, "-i", str(n), "-b", str(burn), "-o", dst, "--checkpoint",
+            os.path.join(work, ck), "--checkpoint_every", str(chunk)])
+        fg = ns.factorGraphs[0]
+        runs[name] = (fg, _outputs(dst), launches, snap["timings"])
+        log("  (a) -i %d -b %d --checkpoint %s --checkpoint_every %d: "
+            "main() %.2f s, launches %s, %s, resumes %s" % (
+                n, burn, ck, chunk, wall, launches, _ckpt_timing(snap),
+                snap["counters"].get("inference.resumes", 0)))
+        colors = sum(1 for r in fg.engine(True).tables.n_rows if r > 0)
+        want = (n - (cut if name == "resumed" else 0) +
+                (burn if name != "resumed" else 0)) * colors
+        if launches != (want, 0, 0):
+            fail("checkpointed inference (%s): launches %s, expected %s"
+                 % (name, launches, (want, 0, 0)))
+    whole, resumed = runs["whole"], runs["resumed"]
+    same = whole[1] == resumed[1] and \
+        torch.equal(whole[0].state.count, resumed[0].state.count)
+    out["ckpt_bytes"] = os.path.getsize(os.path.join(work, "ck_a"))
+    save, load = whole[3]["checkpoint.save_s"], \
+        resumed[3]["checkpoint.load_s"]
+    out["ckpt_save_s"] = save["total_s"] / save["count"]
+    out["ckpt_load_s"] = load["total_s"] / load["count"]
+    log("  (a) interrupted at %d and resumed == whole: %s (marginals file, "
+        "tallies); checkpoint of %d variables: %d bytes, save %.4f s, "
+        "load %.4f s" % (cut, same, whole[0].cg.n_vars, out["ckpt_bytes"],
+                         out["ckpt_save_s"], out["ckpt_load_s"]))
+    if not same:
+        fail("checkpointed inference: the resumed run differs from the "
+             "whole one")
+    out["ckpt_marginals"] = whole[0].full_marginals(epochs)[:, 1]
+    out["sweep_launches"] = whole[2][0]
+    out["ising_fg"] = whole[0]
+
+    # (g) the profiler around one more chunk of the same graph
+    fg = whole[0]
+    logdir = os.path.join(work, "trace")
+    with trace(logdir), annotate("nsx.phase11"):
+        fg.inference(0, chunk, sample_evidence=True,
+                     checkpoint=os.path.join(work, "ck_trace"),
+                     checkpoint_every=chunk)
+    tfile = os.path.join(logdir, "trace.json")
+    with open(tfile) as f:
+        names = {str(e.get("name")) for e in _json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if any(k in n for k in SWEEP_KERNELS))
+    log("  (g) trace of one chunk: %s, %d bytes, %d event names; "
+        "nsx.chunk %s; sweep kernels %s" % (
+            tfile, os.path.getsize(tfile), len(names), "nsx.chunk" in names,
+            kernels))
+    if "nsx.chunk" not in names or not kernels:
+        fail("the trace lacks the nsx.chunk region or the sweep kernel")
+
+
+def _ckpt_learning(torch, work, cdir, out):
+    """Phase 11 (b): checkpointed learning through kernel #2 on the coin
+    graph, whole and interrupted; (g) burnIn on the card."""
+    from numbskull_tpu_torch.checkpoint import load_checkpoint
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    epochs, cut, chunk, burn = CKPT
+    runs = {}
+    for name, n, ck in (("whole", epochs, "lk_a"), ("cut", cut, "lk_b"),
+                        ("resumed", epochs, "lk_b")):
+        dst = os.path.join(work, "lk_out_" + name)
+        ns, wall, launches, snap = _cli_run(torch, [
+            cdir, "-l", str(n), "-i", "5", "-b", "5", *CKPT_LEARN, "-o", dst,
+            "--checkpoint", os.path.join(work, ck), "--checkpoint_every",
+            str(chunk)])
+        runs[name] = (ns, _outputs(dst), launches)
+        log("  (b) -l %d -i 5 --checkpoint %s: main() %.2f s, launches %s, "
+            "%s, resumes %s" % (n, ck, wall, launches, _ckpt_timing(snap),
+                                snap["counters"].get("learning.resumes", 0)))
+        per_epoch = learn_launches_per_epoch(
+            ns.factorGraphs[0].engine(True).learn_tables())
+        want = (n - (cut if name == "resumed" else 0)) * per_epoch
+        if launches[1] != want:
+            fail("checkpointed learning (%s): %d learn launches, expected "
+                 "%d" % (name, launches[1], want))
+    a = load_checkpoint(os.path.join(work, "lk_a.learn"), DEVICE)[0]
+    b = load_checkpoint(os.path.join(work, "lk_b.learn"), DEVICE)[0]
+    same = runs["whole"][1][1] == runs["resumed"][1][1] and all(
+        _bits_equal(torch, getattr(a, k), getattr(b, k))
+        for k in ("weight_value", "var_value", "var_value_evid"))
+    w = runs["whole"][0].factorGraphs[0].getWeights()
+    log("  (b) interrupted at %d and resumed == whole: %s (weights file, "
+        "weights and both chains in <ck>.learn); weights %s" % (
+            cut, same, w))
+    if not same:
+        fail("checkpointed learning: the resumed run differs")
+    out["learn_launches"] = runs["whole"][2][1]
+    out["coin_ns"] = runs["whole"][0]
+
+    # (g) burnIn on the card: sweeps, no tally
+    fg = runs["whole"][0].factorGraphs[0]
+    cnt = fg.state.count.clone()
+    _zero_counts(pig)
+    fg.burnIn(3, True)
+    colors = sum(1 for r in fg.engine(True).tables.n_rows if r > 0)
+    log("  (g) burnIn(3, True): %d sweep launches, tallies unchanged %s"
+        % (pig.KERNEL_LAUNCHES, torch.equal(cnt, fg.state.count)))
+    if pig.KERNEL_LAUNCHES != 3 * colors or \
+            not torch.equal(cnt, fg.state.count):
+        fail("burnIn did not run 3 untallied sweeps on the card")
+
+
+def _ckpt_xla(torch, work, gdir, out):
+    """Phase 11 (c): --engine xla on the 1M Ising, chunked == one call,
+    marginals against (a)'s."""
+    import numpy as np
+    epochs, _, chunk, burn = CKPT
+    runs = {}
+    for name, flags in (("one call", []),
+                        ("chunked", ["--checkpoint",
+                                     os.path.join(work, "ck_x"),
+                                     "--checkpoint_every", str(chunk)])):
+        dst = os.path.join(work, "xla_" + name.replace(" ", "_"))
+        ns, wall, launches, snap = _cli_run(torch, [
+            gdir, "-i", str(epochs), "-b", str(burn), "-o", dst,
+            "--engine", "xla", *flags])
+        fg = ns.factorGraphs[0]
+        ms = snap["timings"]["inference.sweep_s"]["total_s"] * 1e3 / (
+            epochs + burn)
+        runs[name] = (fg, _outputs(dst))
+        log("  (c) --engine xla -i %d -b %d %s: main() %.2f s, %.3f ms per "
+            "epoch (inference.sweep_s over %d epochs), launches %s, "
+            "engine.requested.xla %s" % (
+                epochs, burn, name, wall, ms, epochs + burn, launches,
+                snap["counters"].get("engine.requested.xla")))
+        if launches != (0, 0, 0):
+            fail("--engine xla launched a kernel")
+        out["xla_ms " + name] = ms
+    one, chunked = runs["one call"], runs["chunked"]
+    same = one[1] == chunked[1] and torch.equal(one[0].state.count,
+                                                chunked[0].state.count)
+    m = one[0].full_marginals(epochs)[:, 1]
+    k = out["ckpt_marginals"]
+    d_mean, d_abs = abs(m.mean() - k.mean()), float(np.abs(m - k).mean())
+    log("  (c) chunked == one call: %s; against (a)'s kernels: mean "
+        "marginal %.5f vs %.5f, mean |difference| %.4f (two independent "
+        "120-epoch chains; 0.070 on a 128x128 Ising on the CPU)" % (
+            same, m.mean(), k.mean(), d_abs))
+    if not same:
+        fail("--engine xla: the chunked run differs from the one call")
+    if d_mean > 0.01 or d_abs > 0.1:
+        fail("--engine xla marginals off the kernels' (mean %.5f, mean "
+             "|difference| %.4f)" % (d_mean, d_abs))
+
+
+def _ckpt_resilient(torch, work, coin):
+    """Phase 11 (d): run_resilient on GibbsEngine with faults at chunks 1
+    and 3 == the run without them."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import GibbsEngine
+    from numbskull_tpu_torch.resilience import FaultInjector, run_resilient
+    w, v, f, fm, dm, _ = coin
+    eng = GibbsEngine(compile_graph(w, v, f, fm, domain_mask=dm),
+                      device=DEVICE)
+    states = {}
+    for name, hook in (("clean", None),
+                       ("faults at 1, 3", FaultInjector(fail_at=(1, 3)))):
+        metrics.reset()
+        _zero_counts(pig)
+        t0 = time.perf_counter()
+        states[name] = run_resilient(
+            eng, eng.init_state(), 7, epochs=120, chunk=30, burn=5,
+            ckpt_path=os.path.join(work, "rs_" + name[:5]), fault_hook=hook)
+        c = metrics.snapshot()["counters"]
+        log("  (d) run_resilient %s: %.2f s, chunks %s, retries %s, "
+            "launches %s" % (name, time.perf_counter() - t0,
+                             c.get("resilience.chunks"),
+                             c.get("resilience.retries", 0), _counts(pig)))
+    a, b = states.values()
+    same = torch.equal(a.count, b.count) and torch.equal(a.var_value,
+                                                         b.var_value)
+    log("  (d) with faults == without: %s" % same)
+    if not same:
+        fail("run_resilient: the run with faults differs")
+
+
+def _ckpt_db(torch, work, coin, out):
+    """Phase 11 (e): -u sqlite:// on the coin graph == loadFactorGraph
+    on get_fg_data's arrays."""
+    import sqlite3
+
+    from numbskull_tpu_torch import dbsource
+    from numbskull_tpu_torch import numbskull as cli
+    w, v, f, fm, _, _ = coin
+    db = os.path.join(work, "coin.db")
+    t0 = time.perf_counter()
+    conn = sqlite3.connect(db)
+    dbsource.write_graph_to_db(conn.cursor(), "coin", w, v, f, fm)
+    conn.commit()
+    conn.close()
+    log("  (e) write_graph_to_db: %d variables, %d factors, %d bytes in "
+        "%.2f s" % (len(v), len(f), os.path.getsize(db),
+                    time.perf_counter() - t0))
+    argv = ["-l", "20", "-i", "20", "-b", "5", *CKPT_LEARN, "--seed", "4"]
+    dst = os.path.join(work, "db_out")
+    ns, wall, launches, snap = _cli_run(
+        torch, ["-u", "sqlite://" + db, *argv, "-o", dst])
+    out["db_load_s"] = snap["timings"]["load.db_s"]["total_s"]
+    log("  (e) main -u: %.2f s, DB load %.3f s, compile %.3f s, launches "
+        "%s" % (wall, out["db_load_s"],
+                snap["timings"]["load.compile_s"]["total_s"], launches))
+    if not launches[0] or not launches[1]:
+        fail("-u: the sweep or learn kernel was not launched")
+    conn = dbsource.connect("sqlite://" + db)
+    arrays = dbsource.get_fg_data(conn.cursor())
+    conn.close()
+    ref = os.path.join(work, "db_ref")
+    ns = cli.NumbSkull(n_learning_epoch=20, n_inference_epoch=20, burn_in=5,
+                       stepsize=0.1, decay=0.99, reg_param=1e-4, seed=4,
+                       quiet=True, device=DEVICE, output_dir=ref)
+    ns.loadFactorGraph(*arrays[:6])
+    ns.learning()
+    ns.inference()
+    same = _outputs(dst) == _outputs(ref)
+    log("  (e) -u == loadFactorGraph(get_fg_data arrays): %s" % same)
+    if not same:
+        fail("-u output differs from the arrays' run")
+
+
+def _ckpt_db_bsp(torch, work, coin):
+    """Phase 11 (f): the keyed DB through run_distributed and
+    bsp_from_db(itemgrid=True) (kernel #1 has_ext)."""
+    import sqlite3
+
+    import numpy as np
+
+    from numbskull_tpu_torch import dbsource
+    from numbskull_tpu_torch import numbskull as cli
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.parallel.bsp import BSPItemGridInference
+    w, v, f, fm, _, _ = coin
+    var_keys = ["B" if i % 2 == 0 else "D1" for i in range(len(v))]
+    first_vid = fm["vid"][f["ftv_offset"].astype(np.int64)]
+    factor_keys = ["Du1" if f["arity"][i] == 2 else
+                   ("B" if first_vid[i] % 2 == 0 else "D1")
+                   for i in range(len(f))]
+    db = os.path.join(work, "keyed.db")
+    t0 = time.perf_counter()
+    conn = sqlite3.connect(db)
+    dbsource.write_graph_to_db(conn.cursor(), "coin", w, v, f, fm,
+                               var_keys=var_keys, factor_keys=factor_keys)
+    conn.commit()
+    conn.close()
+    log("  (f) keyed graph written in %.2f s" % (time.perf_counter() - t0))
+    ns = cli.load(["-u", "sqlite://" + db, "--parts", "2", "-i", "10", "-b",
+                   "2", "-q", "-o", os.path.join(work, "keyed_out"),
+                   "--device", DEVICE])
+    t0 = time.perf_counter()
+    res = cli.run_distributed(ns)
+    log("  (f) --parts 2 -u: %.2f s; partition %s, mode %s, costs %s" % (
+        time.perf_counter() - t0, res["partition"], res["mode"],
+        res["costs"]))
+    if "keys" not in res["costs"] or res["mode"] != "messages":
+        fail("--parts -u: the DB keys were not costed or auto did not "
+             "pick messages")
+    conn = dbsource.connect("sqlite://" + db)
+    cur = conn.cursor()
+    t0 = time.perf_counter()
+    eng, part, _ = dbsource.bsp_from_db(cur, itemgrid=True, seed=2,
+                                        device=DEVICE)
+    arrays = dbsource.get_fg_data(cur, "1=1", mark_roles=False)
+    conn.close()
+    ref = BSPItemGridInference(*arrays[:4], part, mode=eng.mode,
+                               domain_mask=arrays[4], seed=2, device=DEVICE)
+    log("  (f) bsp_from_db(itemgrid=True) and the arrays' engine built in "
+        "%.2f s; mode %s, parts %s" % (
+            time.perf_counter() - t0, eng.mode,
+            np.bincount(part).tolist()))
+    seed, burn, epochs = BSP_RUN
+    _zero_counts(pig)
+    eng.inference(seed, epochs, burn=burn)
+    torch.cuda.synchronize()
+    launches = _counts(pig)
+    ref.inference(seed, epochs, burn=burn, plain=True)
+    torch.cuda.synchronize()
+    same = torch.equal(eng.state.values, ref.state.values) and \
+        torch.equal(eng.state.counts, ref.state.counts)
+    log("  (f) bsp_from_db kernels == the arrays' engine, plain versions "
+        "(values, tallies): %s; launches %s" % (same, launches))
+    if not same or not launches[2]:
+        fail("bsp_from_db: the has_ext kernel did not run or disagrees")
+    return launches[2]
+
+
+def phase_checkpoint(torch, card):
+    """Phase 11: checkpointed and resumable runs, --engine xla, the DB
+    source, burnIn and the profiler hooks. Returns a dict of what it
+    measured."""
+    from numbskull_tpu_torch import dataloading
+    from numbskull_tpu_torch.models import coin_model, ising_grid
+    from numbskull_tpu_torch.observability import device_memory_stats
+    log("== phase 11: checkpoints, --engine xla, -u, burnIn, profiler; %s"
+        % card)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    coin = coin_model(COIN_COPIES, *COIN_TRUTH, evidence=True, fixed=False,
+                      seed=3)
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_ckpt_") as work:
+        gdir, cdir = (os.path.join(work, n) for n in ("ising", "coin"))
+        t0 = time.perf_counter()
+        w, v, f, fm, _, _ = ising_grid(GRID, GRID, weight=0.25)
+        dataloading.write_factor_graph_files(gdir, w, v, f, fm)
+        dataloading.write_factor_graph_files(cdir, *coin[:4])
+        log("  Ising %dx%d and coin %d copies written in %.2f s" % (
+            GRID, GRID, COIN_COPIES, time.perf_counter() - t0))
+        _ckpt_inference(torch, work, gdir, out)
+        _ckpt_learning(torch, work, cdir, out)
+        _ckpt_xla(torch, work, gdir, out)
+        _ckpt_resilient(torch, work, coin)
+        _ckpt_db(torch, work, coin, out)
+        out["ext_launches"] = _ckpt_db_bsp(torch, work, coin)
+        stats = device_memory_stats()
+        log("  (g) device_memory_stats: %s" % stats)
+        if stats[0]["bytes_in_use"] <= 0:
+            fail("device_memory_stats reports no bytes in use")
+    log("  phase 11 took %.2f s" % (time.perf_counter() - t_phase))
+    return out
+
+
+def checkpoint_records(torch, r):
+    """The `checkpoint` mode's kernels line: kernels #1 and #2 with phase
+    11's main-path launches, each held against its plain version on
+    phase 11's own tables and timed there (epoch-differenced)."""
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    eng = r["ising_fg"].engine(True)
+    err = check_equal(torch, "ising1024 (phase 11)", "own", eng, burn=2,
+                      epochs=3)
+    infer = {w: rate(torch, eng, w == "plain", *pts)[1] for w, pts in
+             (("plain", (2, 12)), ("kernel", (20, 220)))}
+    sweep = dict(SWEEP, launches=r["sweep_launches"], max_abs_err=err,
+                 ms=infer["kernel"], plain_ms=infer["plain"],
+                 library_ms=None)
+    sweep["bound_ms"], sweep["bound_by"] = bound(
+        *sweep_epoch_cost(torch, eng.tables))
+    leng = r["coin_ns"].factorGraphs[0].engine(True)
+    lp = LearnParams(regularization=2, reg_param=1e-4)
+    err_l = check_learn_equal(torch, "coin400k (phase 11)", leng, lp,
+                              burn=2, epochs=3, stepsize=0.1, decay=0.99)
+    learn = {w: rate(torch, leng, w == "plain", *pts, lp=lp)[1] for w, pts in
+             (("plain", (2, 6)), ("kernel", (20, 120)))}
+    lrec = dict(LEARN, launches=r["learn_launches"], max_abs_err=err_l,
+                ms=learn["kernel"], plain_ms=learn["plain"], library_ms=None)
+    lrec["bound_ms"], lrec["bound_by"] = bound(
+        *learn_epoch_cost(torch, leng.learn_tables()))
+    log("  phase 11 kernels: sweep %.4f ms (plain %.3f), learn %.4f ms "
+        "(plain %.3f) per epoch" % (infer["kernel"], infer["plain"],
+                                    learn["kernel"], learn["plain"]))
+    return [sweep, lrec]
+
+
 def finish(torch, card, records):
     log(card)
     print(json.dumps({"kernels": records}))
@@ -2594,6 +3023,10 @@ def main():
     if sys.argv[1:] == ["sweep"]:     # phases 1, 2 (the sweep), 3, 7
         finish(torch, card, [sweep_record(*sweep_phases(torch, card))])
         return
+    if sys.argv[1:] == ["checkpoint"]:    # phases 1 and 11 only
+        finish(torch, card, checkpoint_records(
+            torch, phase_checkpoint(torch, card)))
+        return
     if sys.argv[1:] == ["lattice"]:   # phases 1, 2 (the lattice), 6
         worst_s = phase_stencil_compare(torch)
         launches, lattice = phase_lattice(torch, card)
@@ -2616,6 +3049,7 @@ def main():
     mcr = phase_mc(torch, card)
     bspr = phase_bsp(torch, card)
     gatherr = phase_gather(torch, card)
+    phase_checkpoint(torch, card)
     records = [
         sweep_record(launches, max(worst, err3, err5, hbm["err"]),
                      rates[("ising1024", "infer")], sweep_cost, hbm),

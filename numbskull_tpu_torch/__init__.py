@@ -5,17 +5,20 @@ package ``numbskull_tpu`` beside it is the reference this port is held
 against; the port imports ``torch`` and never ``jax``.
 
 Modules copied from the JAX package (pure numpy, import paths aside):
-``types``, ``timer``, ``plancache``, ``dataloading``, ``compile`` and
-``models`` (coin, ising, lf, voting). Rewritten on torch tensors:
-``observability`` (the Metrics registry), ``ops.factor_semantics``,
-``ops.factor_eval``, ``ops.gibbs`` (state and plain potentials),
-``ops.itemgrid`` (the fused sweep: CUDA kernel in
+``types``, ``timer``, ``plancache``, ``dataloading``, ``compile``,
+``dbsource`` (``bsp_from_db`` takes ``device=``), ``parallel.partition``
+and ``models`` (coin, ising, lf, voting). Rewritten on torch tensors:
+``observability`` (the Metrics registry and the profiler hooks),
+``checkpoint`` (state and base seed in one ``.npz``), ``resilience``
+(checkpointed chunks with recovery), ``ops.factor_semantics``,
+``ops.factor_eval``, ``ops.gibbs`` (state, plain potentials and the
+tensor-op engine), ``ops.itemgrid`` (the fused sweep: CUDA kernel in
 ``csrc/itemgrid_sweep.cu``, its plain version, and the engine),
-``convert`` and ``numbskull`` (the CLI inference path). Graph-sharded
-runs: ``ops.itemgrid_mc`` (``MultiChipItemGridEngine``, shards in one
-process or one per process of a ``torch.distributed`` group, the
-exchange kernel in ``csrc/itemgrid_exchange.cu``) and
-``parallel.multihost`` (joining the group).
+``convert`` and ``numbskull`` (the CLI). Graph-sharded runs:
+``ops.itemgrid_mc`` (``MultiChipItemGridEngine``, shards in one process
+or one per process of a ``torch.distributed`` group, the exchange kernel
+in ``csrc/itemgrid_exchange.cu``) and ``parallel.multihost`` (joining
+the group); partitioned runs: ``parallel.bsp``.
 """
 
 __version__ = "0.1.0"

@@ -35,7 +35,6 @@ from numbskull_tpu_torch.experiments import common
 from numbskull_tpu_torch.models import voting_grouped
 from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 from numbskull_tpu_torch.ops.itemgrid import EnvelopeError, ItemGridEngine
-from numbskull_tpu_torch.ops.sample import make_generator
 
 DEGREES = (1, 2, 5, 10, 20, 35, 50)
 HEADER = ["degree", "n_vars", "n_colors", "engine", "compile_s",
@@ -53,17 +52,15 @@ def build_engine(cg, device) -> tuple:
         return "gibbs", GibbsEngine(cg, device=device)
 
 
-def runners(eng, device) -> tuple:
+def runners(eng) -> tuple:
     """(inference runner, learning runner) of ``eng`` for epoch_rate:
     ``run(epochs, rep)``."""
     if isinstance(eng, ItemGridEngine):
         return (lambda ep, r: eng.run(1 + r, 0, ep),
                 lambda ep, r: eng.learn(1 + r, 0, ep, 0.01))
     st = eng.init_state()
-    return (lambda ep, r: eng.inference(st, make_generator(1 + r, device),
-                                        ep),
-            lambda ep, r: eng.learn(st, make_generator(1 + r, device), ep,
-                                    0.01))
+    return (lambda ep, r: eng.inference(st, 1 + r, ep),
+            lambda ep, r: eng.learn(st, 1 + r, ep, 0.01))
 
 
 def run(out_path: str = "degree_sweep.tsv", n_vars: int = 1_260_000,
@@ -82,7 +79,7 @@ def run(out_path: str = "degree_sweep.tsv", n_vars: int = 1_260_000,
         cg = compile_graph(w, v, f, fm, domain_mask=dm, cache=cache)
         compile_s = time.perf_counter() - t0
         engine, eng = build_engine(cg, device)
-        infer, learn = runners(eng, device)
+        infer, learn = runners(eng)
         ups, per = epoch_rate(infer, V, *points[0], device=device)
         lups, lper = epoch_rate(learn, V, *points[1], device=device)
         rows.append([degree, V, cg.n_colors, engine, "%.2f" % compile_s,

@@ -83,11 +83,11 @@ def run(out_path: str = "engine_tradeoff.tsv", device="cuda",
         def rate(run, units, which):
             return "%.3e" % epoch_rate(run, units, *pts[which],
                                        device=device, min_delta=delta)[0]
-        infer, _ = runners(GibbsEngine(cg, device=device), device)
+        infer, _ = runners(GibbsEngine(cg, device=device))
         xla = rate(infer, V, 0)
         note = ""
         try:
-            infer, _ = runners(ItemGridEngine(cg, device=device), device)
+            infer, _ = runners(ItemGridEngine(cg, device=device))
             item = rate(infer, V, 1)
         except EnvelopeError as err:
             item, note = "fallback", str(err)[:60]

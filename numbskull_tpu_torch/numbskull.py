@@ -1,20 +1,19 @@
 """Public API and CLI of the PyTorch port: ``NumbSkull`` and
 ``python -m numbskull_tpu_torch``.
 
-Port of ``numbskull_tpu/numbskull.py`` for learning and inference: the
-same argument table and the same two output files (reference:
-numbskull/numbskull.py:18-149 argument tables, :359-391 output files),
-with learning (``-l N``) running through the learn kernels and inference
-through the fused sweep kernel of ``ops/itemgrid``, on the device named
-by ``--device``. A graph outside the kernels' envelope
-(``ops/itemgrid.EnvelopeError``) runs on the tensor-op
-``ops/gibbs.GibbsEngine`` on the same device instead, as the JAX CLI
-falls back to its XLA engine. Learning runs first; inference continues
-from the learned weights and the learned free chain. ``--parts N`` runs
-the whole job partitioned (:func:`run_distributed`, ``parallel/bsp.
-BSPEngine``). Flags whose machinery is not ported yet raise
-NotImplementedError naming the ROADMAP.md port-queue item that will
-serve them; none is ignored.
+Port of ``numbskull_tpu/numbskull.py``: the same argument table and the
+same two output files (reference: numbskull/numbskull.py:18-149 argument
+tables, :359-391 output files), with learning (``-l N``) running through
+the learn kernels and inference through the fused sweep kernel of
+``ops/itemgrid``, on the device named by ``--device``. A graph outside
+the kernels' envelope (``ops/itemgrid.EnvelopeError``) runs on the
+tensor-op ``ops/gibbs.GibbsEngine`` on the same device instead, as the
+JAX CLI falls back to its XLA engine; ``--engine xla`` runs that engine
+for every graph. Learning runs first; inference continues from the
+learned weights and the learned free chain. ``--checkpoint`` runs both
+in resumable chunks (``checkpoint.py``), ``-u`` reads the graph from a
+database (``dbsource.py``), and ``--parts N`` runs the whole job
+partitioned (:func:`run_distributed`, ``parallel/bsp.BSPEngine``).
 """
 
 from __future__ import annotations
@@ -30,10 +29,9 @@ import torch
 from numbskull_tpu_torch import dataloading
 from numbskull_tpu_torch import types as T
 from numbskull_tpu_torch.compile import compile_graph
-from numbskull_tpu_torch.observability import metrics
+from numbskull_tpu_torch.observability import annotate, metrics
 from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams, init_state
 from numbskull_tpu_torch.ops.itemgrid import EnvelopeError, ItemGridEngine
-from numbskull_tpu_torch.ops.sample import make_generator
 from numbskull_tpu_torch.timer import Timer
 
 # Declarative argument tables shared by the CLI and the class: those of
@@ -119,17 +117,18 @@ arguments = [
                  "graphs beyond its VMEM cap is the same kernels here), "
                  "and fall back to the tensor-op engine for graphs the "
                  "kernels refuse (a warning names the reason under "
-                 "'itemgrid' and 'hbm'); 'xla' is not ported yet"}),
+                 "'itemgrid' and 'hbm'); 'xla' runs the tensor-op engine "
+                 "(ops/gibbs.GibbsEngine) for every graph"}),
     (("--checkpoint",),
         {"metavar": "CHECKPOINT_FILE", "dest": "checkpoint", "default": "",
          "type": str,
          "help": "checkpoint inference to FILE (and learning to "
                  "FILE.learn: weights, both chains, stepsize schedule) "
                  "every --checkpoint_every epochs and resume from it if "
-                 "it exists; composes with engine dispatch (itemgrid or "
-                 "XLA per chunk). Resume is bit-exact when the same "
-                 "engine is selected (XLA chunked runs equal "
-                 "uninterrupted ones exactly)"}),
+                 "it exists; composes with engine dispatch (kernels or "
+                 "tensor-op engine per chunk). Resume is bit-exact when "
+                 "the same engine is selected (under --engine xla "
+                 "chunked runs equal uninterrupted ones exactly)"}),
     (("--checkpoint_every",),
         {"metavar": "N", "dest": "checkpoint_every", "default": 100,
          "type": int, "help": "epochs between checkpoints"}),
@@ -289,31 +288,23 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        "%s is not ported to numbskull_tpu_torch yet (ROADMAP.md, port "
-        "queue: %s)" % (what, item))
-
-
-def check_slice(ns: "NumbSkull") -> None:
-    """Raise for every option this port does not serve yet."""
-    if ns.checkpoint:
-        raise _not_ported("--checkpoint", "M2, checkpoint.py/resilience.py")
-    if ns.dburl:
-        raise _not_ported("-u/--dburl", "M3, dbsource.py")
-    _check_engine(ns.engine)
-
-
-#: --engine values that run the fused kernels (ops/itemgrid)
-KERNEL_ENGINES = ("auto", "itemgrid", "hbm")
+#: --engine values: 'xla' runs GibbsEngine, the others the fused kernels
+ENGINES = ("auto", "xla", "itemgrid", "hbm")
 
 
 def _check_engine(engine: str) -> None:
-    if engine == "xla":
-        raise _not_ported("--engine xla", "M2, the XLA engine's exact "
-                          "resume")
-    if engine not in KERNEL_ENGINES:
+    if engine not in ENGINES:
         raise ValueError("unknown engine %r" % (engine,))
+
+
+def chunk_seed(seed: int, epoch_offset: int) -> int:
+    """The kernels' seed of a run that starts at absolute epoch
+    ``epoch_offset`` of a run with base seed ``seed``:
+    ``SeedSequence([seed, epoch_offset])`` masked to 31 bits (the
+    counterpart of ``jax.random.fold_in(key, epoch_offset)``,
+    numbskull_tpu/numbskull.py:391-393, :481-483)."""
+    ss = np.random.SeedSequence([int(seed), int(epoch_offset)])
+    return int(ss.generate_state(1, np.uint32)[0] & 0x7FFFFFFF)
 
 
 class FactorGraph:
@@ -324,8 +315,17 @@ class FactorGraph:
     (numbskull/factorgraph.py:27-229). ``engine`` is the JAX package's
     argument: 'auto', 'itemgrid' and 'hbm' all run ItemGridEngine (the
     port's kernels hold any graph in device memory), or GibbsEngine for
-    a graph outside the kernels' envelope (:meth:`engine`); each graph
-    adds one to the metrics counter ``engine.requested.<engine>``."""
+    a graph outside the kernels' envelope; 'xla' runs GibbsEngine for
+    every graph (:meth:`engine`). Each graph adds one to the metrics
+    counter ``engine.requested.<engine>``.
+
+    Every run takes one base seed from :meth:`_next_seed` (or, resuming,
+    from its checkpoint). A run in one call hands it to the engine; a
+    checkpointed run's chunk starting at absolute epoch e hands
+    GibbsEngine the base seed and ``epoch_offset`` e, and the kernels
+    :func:`chunk_seed` of (base, e). A checkpointed run in chunks
+    therefore equals the same run interrupted and resumed, bit for bit,
+    on either engine, and under 'xla' it equals the run in one call."""
 
     def __init__(self, cg, fid: int, seed: int = 0, device="cuda",
                  engine: str = "auto"):
@@ -343,28 +343,31 @@ class FactorGraph:
         self._last_learn_s = 0.0
         self._calls = 0
         self._engines = {}       # sample_evidence flag -> engine
-        self._fallback = None    # the GibbsEngine, once the kernels refused
+        self._gibbs = None       # the GibbsEngine, once one is needed
 
     def _next_seed(self) -> int:
-        """Seed of the next run: SeedSequence([seed, fid, call])."""
+        """Base seed of the next run: SeedSequence([seed, fid, call])."""
         ss = np.random.SeedSequence([self.seed, self.fid, self._calls])
         self._calls += 1
         return int(ss.generate_state(1, np.uint32)[0] & 0x7FFFFFFF)
 
-    def _generator(self) -> torch.Generator:
-        """The GibbsEngine's generator for the next run, on the graph's
-        device, seeded from :meth:`_next_seed`."""
-        return make_generator(self._next_seed(), self.device)
+    def _gibbs_engine(self) -> GibbsEngine:
+        if self._gibbs is None:
+            self._gibbs = GibbsEngine(self.cg, device=self.device)
+        return self._gibbs
 
     def engine(self, sample_evidence: bool):
-        """The ItemGridEngine for ``sample_evidence``; for a graph outside
-        the kernels' envelope (EnvelopeError, and nothing else), the
-        tensor-op GibbsEngine on the same device. Each refusal adds one
-        to the metrics counter ``engine.fallbacks`` and, under engine
-        'itemgrid' or 'hbm', warns with the reason
+        """The ItemGridEngine for ``sample_evidence``; under engine 'xla',
+        and for a graph outside the kernels' envelope (EnvelopeError, and
+        nothing else), the tensor-op GibbsEngine on the same device. Each
+        refusal adds one to the metrics counter ``engine.fallbacks`` and,
+        under engine 'itemgrid' or 'hbm', warns with the reason
         (numbskull_tpu/numbskull.py:283-328)."""
         key = bool(sample_evidence)
         if key not in self._engines:
+            if self.engine_mode == "xla":
+                self._engines[key] = self._gibbs_engine()
+                return self._engines[key]
             try:
                 self._engines[key] = ItemGridEngine(
                     self.cg, sample_evidence=key, device=self.device)
@@ -375,42 +378,100 @@ class FactorGraph:
                         "back to the tensor-op engine (ops/gibbs."
                         "GibbsEngine): %s" % (self.engine_mode, err))
                 metrics.add("engine.fallbacks")
-                if self._fallback is None:
-                    self._fallback = GibbsEngine(self.cg, device=self.device)
-                self._engines[key] = self._fallback
+                self._engines[key] = self._gibbs_engine()
         return self._engines[key]
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _sweep(self, eng, burnin_epochs: int, epochs: int,
+               sample_evidence: bool, seed: int, epoch_offset=None):
+        """``burnin_epochs`` untallied and ``epochs`` tallied sweeps of
+        the free chain on ``eng``, the tallies added to the state's;
+        ``epoch_offset`` is a checkpointed chunk's first epoch (None for
+        a run in one call)."""
+        if isinstance(eng, GibbsEngine):
+            self.state = eng.inference(
+                self.state, seed, epochs, burn=burnin_epochs,
+                sample_evidence=sample_evidence,
+                epoch_offset=epoch_offset or 0)
+        else:
+            vals, counts = eng.run(
+                seed if epoch_offset is None else
+                chunk_seed(seed, epoch_offset), burnin_epochs, epochs,
+                weight_value=self.state.weight_value,
+                x0=self.state.var_value)
+            self.state.var_value = vals
+            self.state.count += counts
+
+    def burnIn(self, epochs: int, sample_evidence: bool):
+        """``epochs`` burn-in sweeps of the free chain, no tally
+        (numbskull_tpu/numbskull.py:330-333)."""
+        self._sweep(self.engine(sample_evidence), epochs, 0,
+                    sample_evidence, self._next_seed())
+        self._sync()
+
+    def _chunked(self, path: str, every: int, epochs: int, done_key: str,
+                 resume_metric: str, run) -> None:
+        """``epochs`` epochs in chunks of ``every`` (at least 1), each as
+        ``run(n, done, seed)``, the state and the base seed saved to
+        ``path`` after each (meta ``done_key``: epochs done). An existing
+        ``path`` is resumed, its seed with it (numbskull_tpu/numbskull.py:
+        351-372, :440-461); otherwise the base seed is drawn, and only
+        when there are epochs to run, as a run without a checkpoint does.
+        Each chunk is an ``nsx.chunk`` region in a profiler trace."""
+        from numbskull_tpu_torch.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+        every = max(int(every), 1)
+        done, seed = 0, None
+        if os.path.exists(path):
+            self.state, seed, meta = load_checkpoint(path, self.device)
+            done = int(meta.get(done_key, 0))
+            metrics.add(resume_metric)
+        if seed is None and done < epochs:
+            seed = self._next_seed()
+        while done < epochs:
+            n = min(every, epochs - done)
+            with annotate("nsx.chunk"):
+                run(n, done, seed)
+            done += n
+            save_checkpoint(path, self.state, seed, meta={done_key: done})
 
     def inference(self, burnin_epochs: int, epochs: int,
                   sample_evidence: bool = False, diagnostics: bool = False,
                   checkpoint: str = "", checkpoint_every: int = 100):
+        """Burn-in and ``epochs`` tallied epochs. With ``checkpoint``, the
+        run goes in chunks of ``checkpoint_every`` epochs (at least 1),
+        burn-in in the first only, the state and the base seed saved
+        after each (meta ``epochs_done``); an existing file is resumed
+        (numbskull_tpu/numbskull.py:339-378)."""
         if checkpoint:
-            raise _not_ported("checkpointed inference",
-                              "M2, checkpoint.py/resilience.py")
-        self._infer_once(burnin_epochs, epochs, sample_evidence)
+            self._chunked(checkpoint, checkpoint_every, epochs,
+                          "epochs_done", "inference.resumes",
+                          lambda n, done, seed: self._infer_once(
+                              burnin_epochs if done == 0 else 0, n,
+                              sample_evidence, seed, done))
+            if diagnostics:
+                self.diagnostics(self.inference_epochs_done)
+            return
+        self._infer_once(burnin_epochs, epochs, sample_evidence,
+                         self._next_seed())
         if diagnostics:
             print("FACTOR %d: inference %d epochs took %.3f sec" %
                   (self.fid, epochs, self._last_infer_s))
             self.diagnostics(self.inference_epochs_done)
 
     def _infer_once(self, burnin_epochs: int, epochs: int,
-                    sample_evidence: bool):
+                    sample_evidence: bool, seed: int, epoch_offset=None):
+        """One timed inference run (:meth:`_sweep`)."""
         with Timer() as t:
             with metrics.time("inference.engine_build_s"):
                 eng = self.engine(sample_evidence)
             with metrics.time("inference.sweep_s"):
-                if isinstance(eng, GibbsEngine):
-                    self.state = eng.inference(
-                        self.state, self._generator(), epochs,
-                        burn=burnin_epochs, sample_evidence=sample_evidence)
-                else:
-                    vals, counts = eng.run(
-                        self._next_seed(), burnin_epochs, epochs,
-                        weight_value=self.state.weight_value,
-                        x0=self.state.var_value)
-                    self.state.var_value = vals
-                    self.state.count += counts
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sweep(eng, burnin_epochs, epochs, sample_evidence,
+                            seed, epoch_offset)
+                self._sync()
         metrics.observe("inference.run_s", t.interval)
         metrics.add("inference.epochs", epochs + burnin_epochs)
         metrics.add("inference.variable_updates",
@@ -427,16 +488,26 @@ class FactorGraph:
               checkpoint_every: int = 100):
         """Dual-chain SGD through the learn kernels (the signature of
         numbskull_tpu/numbskull.py:424-469). Zero epochs keep the
-        weights and the chains as they are."""
+        weights and the chains as they are. With ``checkpoint``, chunks
+        as for :meth:`inference` (meta ``learn_epochs_done``), chunk c
+        stepping from ``stepsize * decay**done``."""
         lp = LearnParams(regularization=regularization, reg_param=reg_param,
                          truncation=truncation,
                          learn_non_evidence=learn_non_evidence,
                          grad_agg=grad_agg)
         if checkpoint:
-            raise _not_ported("checkpointed learning",
-                              "M2, checkpoint.py/resilience.py")
-        if epochs > 0:
-            self._learn_once(burnin_epochs, epochs, stepsize, decay, lp)
+            # a fully resumed run runs no _learn_once (which sets the
+            # timing): seed it for the diagnostics print
+            self._last_learn_s = 0.0
+            self._chunked(checkpoint, checkpoint_every, epochs,
+                          "learn_epochs_done", "learning.resumes",
+                          lambda n, done, seed: self._learn_once(
+                              burnin_epochs if done == 0 else 0, n,
+                              stepsize * decay ** done, decay, lp, seed,
+                              done))
+        elif epochs > 0:
+            self._learn_once(burnin_epochs, epochs, stepsize, decay, lp,
+                             self._next_seed())
         if diagnostics:
             print("FACTOR %d: learning %d epochs took %.3f sec" %
                   (self.fid, epochs, self._last_learn_s))
@@ -444,9 +515,10 @@ class FactorGraph:
                 self.diagnosticsLearning()
 
     def _learn_once(self, burnin_epochs: int, epochs: int,
-                    stepsize: float, decay: float, lp: LearnParams):
-        """One learning run; both chains continue from the current
-        state."""
+                    stepsize: float, decay: float, lp: LearnParams,
+                    seed: int, epoch_offset=None):
+        """One learning run, seeded as :meth:`_sweep` seeds inference;
+        both chains continue from the current state."""
         with Timer() as t:
             with metrics.time("learning.engine_build_s"):
                 eng = self.engine(True)
@@ -455,19 +527,21 @@ class FactorGraph:
             with metrics.time("learning.sweep_s"):
                 if isinstance(eng, GibbsEngine):
                     self.state = eng.learn(
-                        self.state, self._generator(), epochs, stepsize,
-                        decay, burn=burnin_epochs, lp=lp)
+                        self.state, seed, epochs, stepsize, decay,
+                        burn=burnin_epochs, lp=lp,
+                        epoch_offset=epoch_offset or 0)
                 else:
                     w, x, xe = eng.learn(
-                        self._next_seed(), burnin_epochs, epochs, stepsize,
-                        decay, lp, weight_value=self.state.weight_value,
+                        seed if epoch_offset is None else
+                        chunk_seed(seed, epoch_offset), burnin_epochs,
+                        epochs, stepsize, decay, lp,
+                        weight_value=self.state.weight_value,
                         x0=self.state.var_value,
                         xe0=self.state.var_value_evid)
                     self.state.weight_value = w
                     self.state.var_value = x
                     self.state.var_value_evid = xe
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._sync()
         metrics.observe("learning.run_s", t.interval)
         metrics.add("learning.epochs", epochs)
         self.learning_total_time += t.interval
@@ -574,8 +648,7 @@ def dump_weight_text(weights: np.ndarray, fout: str):
 class NumbSkull:
     """Main user-facing class; drop-in analog of the reference NumbSkull
     (numbskull/numbskull.py:152-391). ``device`` ('cuda' by default)
-    holds every graph's sampler state. Options this port
-    does not serve yet raise NotImplementedError here (check_slice)."""
+    holds every graph's sampler state."""
 
     def __init__(self, **kwargs):
         arg_defaults = {}
@@ -588,7 +661,7 @@ class NumbSkull:
             arg_defaults[opts["dest"]] = opts["default"]
         for key, default in arg_defaults.items():
             setattr(self, key, kwargs.get(key, default))
-        check_slice(self)
+        _check_engine(self.engine)
         self.device = resolve_device(self.device)
         self.factorGraphs: list[FactorGraph] = []
 
@@ -657,6 +730,32 @@ class NumbSkull:
             print("chromatic schedule: %d colors" % cg.n_colors)
         self._add_graph(cg)
 
+    def loadFGFromDB(self, dburl=None, sql_filter: str = "1=1",
+                     is_master: bool = True):
+        """Load a (partition of a) factor graph from a database.
+
+        Reference analog: master/minion Postgres ingest
+        (salt/src/numbskull_master.py:327-346,
+        salt/src/numbskull_minion.py:142-188). Accepts any DB-API URL
+        handled by ``dbsource.connect`` (postgresql:// or sqlite://)."""
+        from numbskull_tpu_torch import dbsource
+        with metrics.time("load.db_s"):
+            conn = dbsource.connect(dburl or self.dburl)
+            try:
+                cur = conn.cursor()
+                (weight, variable, factor, fmap, domain_mask, edges,
+                 meta) = dbsource.get_fg_data(cur, sql_filter, is_master)
+            finally:
+                conn.close()
+        if not self.quiet:
+            print("DB graph: %d weights, %d variables, %d factors, "
+                  "%d edges" % (len(weight), len(variable), len(factor),
+                                edges))
+        with metrics.time("load.compile_s"):
+            self.loadFactorGraph(weight, variable, factor, fmap,
+                                 domain_mask, edges)
+        return meta
+
     def getFactorGraph(self, fgID: int = 0) -> FactorGraph:
         return self.factorGraphs[fgID]
 
@@ -679,12 +778,15 @@ class NumbSkull:
 
     def learning(self, fgID: int = 0, out: bool = True):
         fg = self.factorGraphs[fgID]
+        # learning checkpoints live beside the inference checkpoint in
+        # their own file (the two runs share the --checkpoint flag)
+        ck = self.checkpoint + ".learn" if self.checkpoint else ""
         fg.learn(self.burn_in, self.n_learning_epoch, self.stepsize,
                  self.decay, self.regularization, self.reg_param,
                  self.truncation, diagnostics=not self.quiet,
                  verbose=self.verbose,
                  learn_non_evidence=self.learn_non_evidence,
-                 grad_agg=self.grad_agg, checkpoint=self.checkpoint,
+                 grad_agg=self.grad_agg, checkpoint=ck,
                  checkpoint_every=self.checkpoint_every)
         if out:
             os.makedirs(self.output_dir, exist_ok=True)
@@ -693,14 +795,37 @@ class NumbSkull:
 
 
 def _distributed_arrays(ns: "NumbSkull"):
-    """Raw full-graph arrays from the graph files for the distributed
-    runner. The DB source and its partition metadata are not ported (M3;
-    ``check_slice`` refuses ``-u``)."""
+    """Raw full-graph arrays and, from a database, its partition metadata
+    (None for graph files) for the distributed runner."""
+    if ns.dburl:
+        from numbskull_tpu_torch import dbsource
+        conn = dbsource.connect(ns.dburl)
+        try:
+            cur = conn.cursor()
+            (weight, variable, factor, fmap, domain_mask, _e,
+             meta) = dbsource.get_fg_data(cur, "1=1", is_master=True,
+                                          mark_roles=False)
+        finally:
+            conn.close()
+        return weight, variable, factor, fmap, domain_mask, meta
     _, weight, variable, factor, fmap, _, domain_mask = \
         dataloading.load_factor_graph_files(
             ns.directory, ns.metafile, ns.weightfile, ns.variablefile,
             ns.factorfile, ns.domainfile)
-    return weight, variable, factor, fmap, domain_mask
+    return weight, variable, factor, fmap, domain_mask, None
+
+
+def _ufo_covers_straddlers(factor, fmap, part, factor_ufo) -> bool:
+    """Whether the UFO flags cover every factor whose variables lie in
+    more than one part (its owner's and another)."""
+    from numbskull_tpu_torch.parallel.bsp import factor_owner
+    owner = factor_owner(factor, fmap, part)
+    fvid = fmap["vid"].astype(np.int64)
+    arity = factor["arity"].astype(np.int64)
+    edge_fid = np.repeat(np.arange(len(factor)), arity)
+    straddles = np.zeros(len(factor), bool)
+    np.logical_or.at(straddles, edge_fid, part[fvid] != owner[edge_fid])
+    return bool((factor_ufo | ~straddles).all())
 
 
 def part_devices(device: torch.device) -> list:
@@ -724,26 +849,42 @@ def run_distributed(ns: "NumbSkull", out: bool = True,
     single call (reference salt/src/numbskull_master.py:547-584; scheme
     selection by cost numbskull_master.py:371-408). Part p runs on
     ``devices[p % len(devices)]``, by default :func:`part_devices` of
-    ``ns.device``. Partition candidates: connected-components packing and
-    balanced region growing under one cost model; the cheapest wins.
-    Without DB metadata ``--dist_mode auto`` is ``values``. Wall times
-    go to the metrics ``distributed.<phase>_s`` (partition, compile,
-    learning, inference, dump)."""
+    ``ns.device``. Partition candidates: the DB's partition keys (when
+    present) compete against connected-components packing and balanced
+    region growing under one cost model; the cheapest wins, and the
+    result's ``costs`` holds every candidate's cost. ``--dist_mode
+    auto`` picks ``messages`` when the DB's UFO flags cover every
+    straddling factor, else ``values``. Wall times go to the metrics
+    ``distributed.<phase>_s`` (partition, compile, learning, inference,
+    dump)."""
     from numbskull_tpu_torch.compile import conflict_edges
     from numbskull_tpu_torch.parallel.bsp import BSPEngine
-    from numbskull_tpu_torch.parallel.partition import choose_partition
+    from numbskull_tpu_torch.parallel.partition import (choose_partition,
+                                                        partition_cost)
 
     devices = part_devices(ns.device) if devices is None else \
         [torch.device(d) for d in devices]
     n_parts = max(int(ns.parts), 1)
-    weight, variable, factor, fmap, domain_mask = _distributed_arrays(ns)
+    (weight, variable, factor, fmap, domain_mask,
+     meta) = _distributed_arrays(ns)
     edges = conflict_edges(variable, factor, fmap)
 
     with Timer() as t_part:
         part, report = choose_partition(len(variable), edges, n_parts)
-    # the DB's partition keys and its UFO flags (which let auto pick
-    # messages) come with the DB source (M3); files carry neither
-    mode = "values" if ns.dist_mode == "auto" else ns.dist_mode
+        if meta is not None and (np.asarray(meta["var_pid"]) >= 0).any():
+            from numbskull_tpu_torch.dbsource import partition_from_keys
+            kp = partition_from_keys(meta["var_pt"], meta["var_pid"])
+            key_cost = partition_cost(len(variable), edges, kp,
+                                      int(kp.max()) + 1)
+            report["keys"] = key_cost
+            if key_cost < report[report["chosen"]]:
+                part, report["chosen"] = kp, "keys"
+
+    mode = ns.dist_mode
+    if mode == "auto":
+        mode = "messages" if meta is not None and "factor_ufo" in meta and \
+            _ufo_covers_straddlers(factor, fmap, part,
+                                   meta["factor_ufo"]) else "values"
 
     with Timer() as t_compile:
         eng = BSPEngine(weight, variable, factor, fmap, part, mode=mode,
@@ -787,6 +928,7 @@ def run_distributed(ns: "NumbSkull", out: bool = True,
                                    "inference_result.out.text"))
     result = {
         "n_parts": n_parts, "mode": mode, "partition": report["chosen"],
+        "costs": {k: float(v) for k, v in report.items() if k != "chosen"},
         "devices": [str(d) for d in eng.devices],
         "partition_s": t_part.interval, "compile_s": t_compile.interval,
         "learning_s": t_learn.interval, "inference_s": t_inf.interval,
@@ -819,7 +961,10 @@ def load(argv=None) -> NumbSkull:
     ns = NumbSkull(**vars(args))
     if ns.parts and ns.parts > 1:
         return ns      # run_distributed loads its own raw arrays
-    ns.loadFGFromFile()
+    if ns.dburl:
+        ns.loadFGFromDB()
+    else:
+        ns.loadFGFromFile()
     return ns
 
 

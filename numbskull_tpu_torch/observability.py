@@ -1,10 +1,17 @@
-"""Metrics registry: process-local counters and timings.
+"""Metrics, tracing, and profiling.
 
-Port of the ``Metrics`` registry of ``numbskull_tpu/observability.py``:
-every engine feeds it (epochs run, variable updates, wall time per
-phase) and ``--metrics_out`` dumps it as one JSON object. The profiler
-hooks of the JAX package (``trace``, ``annotate``) have no counterpart
-here yet.
+Port of ``numbskull_tpu/observability.py``:
+
+- ``Metrics``: a process-local registry of counters and timings that
+  every engine feeds (epochs run, variable updates, wall time per
+  phase); ``--metrics_out`` dumps it as one JSON object.
+- ``trace``: a ``torch.profiler`` trace of the enclosed block (the host,
+  and the card's kernels and copies when one is visible), exported as a
+  Chrome trace into a directory; the counterpart of the JAX package's
+  XPlane trace.
+- ``annotate``: a named region (``torch.profiler.record_function``), so
+  that chunks and phases are attributable inside a trace.
+- ``device_memory_stats``: bytes in use and the limit per visible card.
 """
 
 from __future__ import annotations
@@ -66,3 +73,49 @@ class Metrics:
 
 #: process-wide default registry used by the engines
 metrics = Metrics()
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block: CPU
+    activity, and CUDA kernels and copies when a card is visible. On
+    exit the trace is written to ``logdir/trace.json`` (Chrome trace
+    format: chrome://tracing, Perfetto, TensorBoard)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named trace region (shows up on the profiler's timeline)."""
+    import torch
+    return torch.profiler.record_function(name)
+
+
+def device_memory_stats() -> list[dict]:
+    """Per-card memory stats: ``bytes_in_use`` (allocated through
+    PyTorch's caching allocator) and ``bytes_limit`` (the card's total
+    memory), one entry per visible card; with no card visible, one
+    ``cpu`` entry with None values, as the JAX function gives on its CPU
+    backend. It only reports: it runs and allocates nothing."""
+    import torch
+    if not torch.cuda.is_available():
+        return [{"device": "cpu", "bytes_in_use": None,
+                 "bytes_limit": None}]
+    out = []
+    for i in range(torch.cuda.device_count()):
+        s = torch.cuda.memory_stats(i)
+        out.append({"device": "cuda:%d" % i,
+                    "bytes_in_use": s.get("allocated_bytes.all.current", 0),
+                    "bytes_limit":
+                        torch.cuda.get_device_properties(i).total_memory})
+    return out

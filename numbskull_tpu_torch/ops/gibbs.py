@@ -13,8 +13,12 @@ and moves each weight by the difference of their factor evaluations
 (reference numbskull/learning.py:46-125). A Python loop over colors
 replaces the JAX package's ``lax.scan``; ``stack_plans`` and
 ``stack_plans_padded``, which bound XLA:TPU compile time, are not
-ported. Draws use ``ops/sample.draw`` with a ``torch.Generator``, so
-runs agree with the JAX engine in distribution, not bit for bit. The
+ported. Draws use ``ops/sample.draw`` with a ``torch.Generator`` that
+each epoch seeds afresh from (base seed, stream tag, absolute epoch
+index), as the JAX engine folds every epoch's key at its absolute index
+(numbskull_tpu/ops/gibbs.py:609-625): a run in chunks that pass their
+``epoch_offset`` equals the same run in one call, bit for bit. Runs
+agree with the JAX engine in distribution, not bit for bit. The
 partitioned engine ``parallel/bsp.BSPEngine`` runs one per part.
 """
 
@@ -28,7 +32,7 @@ import torch
 from numbskull_tpu_torch.compile import ColorPlan, CompiledGraph
 from numbskull_tpu_torch.ops.factor_eval import (eval_factors,
                                                  present_types_of)
-from numbskull_tpu_torch.ops.sample import draw
+from numbskull_tpu_torch.ops.sample import draw, make_generator
 from numbskull_tpu_torch.types import EV_EVIDENCE, EV_QUERY
 
 
@@ -190,6 +194,20 @@ def eval_items_at(pd: dict, present, chain: torch.Tensor,
 
 # ---- the tensor-op engine (numbskull_tpu/ops/gibbs.py:418-777) ----------
 
+#: stream tags of ``epoch_seed``: inference burn-in epoch i, tallied epoch
+#: ``epoch_offset + i`` (the JAX engine's fold_in indices i and
+#: ``i + epoch_offset + (1 << 20)``), learning's burn-in and its epochs
+BURN_TAG, EPOCH_TAG, LEARN_BURN_TAG, LEARN_TAG = 0, 1, 2, 3
+
+
+def epoch_seed(seed: int, tag: int, index: int) -> int:
+    """The generator seed of one epoch: ``SeedSequence([seed, tag,
+    index])``, 64 bits (``seed`` is taken modulo 2**64)."""
+    ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF, tag,
+                                 int(index)])
+    return int(ss.generate_state(1, np.uint64)[0])
+
+
 def _store(chain: torch.Tensor, pd: dict, rows: torch.Tensor) -> None:
     """Write the color's new values ``rows`` (R,) into ``chain`` at its
     valid rows' variables (pad rows are dropped)."""
@@ -292,11 +310,13 @@ class GibbsEngine:
     """Chromatic Gibbs sampler over a CompiledGraph in tensor ops, on
     one device (``cuda`` unless the caller asks for ``cpu``).
 
-    ``inference`` and ``learn`` take a ``SamplerState`` and a
-    ``torch.Generator`` on the engine's device (``ops/sample.
-    make_generator``) and return a new state; the one given is not
-    changed. ``ext_pot`` / ``ext_pot_evid`` (V, K') add external
-    potentials, the boundary messages of ``parallel/bsp.BSPEngine``."""
+    ``inference`` and ``learn`` take a ``SamplerState`` and an int base
+    ``seed`` and return a new state; the one given is not changed. Each
+    epoch draws from a generator on the engine's device seeded by
+    :func:`epoch_seed` at its absolute index (``epoch_offset`` plus its
+    index in the call), so chunked runs compose exactly. ``ext_pot`` /
+    ``ext_pot_evid`` (V, K') add external potentials, the boundary
+    messages of ``parallel/bsp.BSPEngine``."""
 
     def __init__(self, cg: CompiledGraph, device="cuda"):
         self.cg = cg
@@ -343,45 +363,57 @@ class GibbsEngine:
             return None
         return torch.as_tensor(ext, dtype=torch.float32, device=self.device)
 
-    def inference(self, state: SamplerState, generator: torch.Generator,
-                  epochs: int, burn: int = 0, sample_evidence: bool = True,
-                  ext_pot=None) -> SamplerState:
+    def _generator(self, seed: int, tag: int, index: int):
+        return make_generator(epoch_seed(seed, tag, index), self.device)
+
+    def inference(self, state: SamplerState, seed: int, epochs: int,
+                  burn: int = 0, sample_evidence: bool = True,
+                  ext_pot=None, epoch_offset: int = 0) -> SamplerState:
         """Burn in, then run ``epochs`` tallying sweeps of the free
-        chain."""
+        chain. ``epoch_offset``: absolute index of the first tallied
+        epoch (checkpointed runs pass their progress, so the epochs'
+        streams continue the same sequence)."""
         ext = self._ext(ext_pot)
         vv = state.var_value.clone()
         w = state.weight_value
-        for _ in range(burn):
-            self._sweep_infer(sample_evidence, vv, w, generator, ext)
+        for i in range(burn):
+            self._sweep_infer(sample_evidence, vv, w,
+                              self._generator(seed, BURN_TAG, i), ext)
         cnt = state.count.clone()
         mask = self._tally_mask(sample_evidence)
         ks = torch.arange(self.kmax, device=self.device)
-        for _ in range(epochs):
-            self._sweep_infer(sample_evidence, vv, w, generator, ext)
+        for i in range(epochs):
+            self._sweep_infer(
+                sample_evidence, vv, w,
+                self._generator(seed, EPOCH_TAG, epoch_offset + i), ext)
             cnt += ((vv[:, None] == ks[None, :]) &
                     mask[:, None]).to(cnt.dtype)
         return dataclasses.replace(state, var_value=vv, count=cnt)
 
-    def learn(self, state: SamplerState, generator: torch.Generator,
-              epochs: int, stepsize: float, decay: float = 1.0,
-              burn: int = 0, lp: LearnParams = LearnParams(), ext_pot=None,
-              ext_pot_evid=None) -> SamplerState:
+    def learn(self, state: SamplerState, seed: int, epochs: int,
+              stepsize: float, decay: float = 1.0, burn: int = 0,
+              lp: LearnParams = LearnParams(), ext_pot=None,
+              ext_pot_evid=None, epoch_offset: int = 0) -> SamplerState:
         """Dual-chain SGD weight learning (burn-in samples evidence).
-        Without ``ext_pot_evid`` the clamped chain takes ``ext_pot``."""
+        Without ``ext_pot_evid`` the clamped chain takes ``ext_pot``.
+        Epoch i steps at ``stepsize * decay**i`` and draws from the
+        stream of epoch ``epoch_offset + i``."""
         ext, ext_e = self._ext(ext_pot), self._ext(ext_pot_evid)
         vv = state.var_value.clone()
         ve = state.var_value_evid.clone()
         w = state.weight_value
-        for _ in range(burn):
-            self._sweep_infer(True, vv, w, generator, ext)
+        for i in range(burn):
+            self._sweep_infer(True, vv, w,
+                              self._generator(seed, LEARN_BURN_TAG, i), ext)
         for i in range(epochs):
             step = float(np.float32(stepsize) *
                          np.power(np.float32(decay), np.float32(i)))
+            gen = self._generator(seed, LEARN_TAG, epoch_offset + i)
             for pd, present in zip(self.plans, self.present):
                 w = _color_step_learn(pd, self.kmax, present, lp,
                                       self.n_weights, self.weight_fixed,
                                       self.var_init, vv, ve, w, step,
-                                      generator, ext, ext_e)
+                                      gen, ext, ext_e)
         return dataclasses.replace(state, var_value=vv, var_value_evid=ve,
                                    weight_value=w)
 

@@ -53,7 +53,6 @@ from numbskull_tpu_torch.ops.gibbs import (
     GibbsEngine, LearnParams, SamplerState, color_potentials, plan_tensors,
 )
 from numbskull_tpu_torch.ops.itemgrid import ItemGridEngine, _i32
-from numbskull_tpu_torch.ops.sample import make_generator
 
 
 def factor_owner(factors, fmap, part: np.ndarray) -> np.ndarray:
@@ -272,12 +271,12 @@ class BSPEngine:
     def _put(self, x: torch.Tensor, p: int) -> torch.Tensor:
         return x.to(self._dev(p))
 
-    def _generator(self, generator: torch.Generator, p: int):
-        """Part p's generator for one sync, seeded from ``generator`` (the
+    @staticmethod
+    def _seed(generator: torch.Generator) -> int:
+        """A part's base seed for one sync, drawn from ``generator`` (the
         counterpart of the JAX engine's fold_in of the step and part)."""
-        seed = int(torch.randint(1 << 62, (1,), generator=generator,
+        return int(torch.randint(1 << 62, (1,), generator=generator,
                                  device=generator.device))
-        return make_generator(seed, self._dev(p))
 
     # --- state -------------------------------------------------------------
 
@@ -333,7 +332,7 @@ class BSPEngine:
                 ext = self.messages(states)
                 states = [
                     eng.inference(
-                        st, self._generator(generator, p),
+                        st, self._seed(generator),
                         epochs=0 if phase == "burn" else k,
                         burn=k if phase == "burn" else 0,
                         sample_evidence=sample_evidence,
@@ -364,7 +363,7 @@ class BSPEngine:
             dw_sum = torch.zeros_like(w_global)
             for p, (eng, st) in enumerate(zip(self.engines, states)):
                 st2 = eng.learn(
-                    st, self._generator(generator, p), epochs=1,
+                    st, self._seed(generator), epochs=1,
                     stepsize=step, decay=1.0, burn=0, lp=lp,
                     ext_pot=None if ext is None else self._put(ext, p),
                     ext_pot_evid=(None if ext_e is None

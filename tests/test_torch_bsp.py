@@ -406,7 +406,7 @@ def test_bsp_engine_leaves_evidence_and_ghosts():
     for _ in range(5):
         for p, e in enumerate(eng.engines):
             before = states[p].var_value.clone()
-            after = e.inference(states[p], eng._generator(gen, p), epochs=1,
+            after = e.inference(states[p], eng._seed(gen), epochs=1,
                                 sample_evidence=False).var_value
             ghost = torch.as_tensor(~eng.owned_masks[p])
             assert torch.equal(after[ghost], before[ghost])

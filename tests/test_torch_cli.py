@@ -1,4 +1,5 @@
-"""The port's CLI against the JAX package's, on the CPU.
+"""The port's CLI against the JAX package's, on the CPU, and the CLI's
+checkpointed runs against themselves.
 
 The two packages draw from different streams (the JAX package seeds its
 kernel from jax.random, the port from numpy's SeedSequence), so their
@@ -85,15 +86,152 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
                        "--device", "cuda"])
 
 
+def _publish_coin_db(path):
+    """The coin fixture's arrays as sharding tables in a sqlite file."""
+    import sqlite3
+
+    from numbskull_tpu_torch import dbsource
+    src = coin_fixture(os.path.join(os.path.dirname(path), "coin_src"))
+    _, w, v, f, fm, _, _ = port_dl.load_factor_graph_files(
+        src, "graph.meta", "graph.weights", "graph.variables",
+        "graph.factors", "graph.domains")
+    conn = sqlite3.connect(path)
+    dbsource.write_graph_to_db(conn.cursor(), "coin", w, v, f, fm)
+    conn.commit()
+    conn.close()
+
+
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint", "ck.npz"], ["--parts", "2", "-u", "sqlite:///g.db"],
-    ["-u", "sqlite:///g.db"], ["--engine", "xla"],
+    ["--checkpoint", "ck.npz"], ["--parts", "2", "-u", "DB"],
+    ["-u", "DB"], ["--engine", "xla"],
     ["--engine", "hbm", "--checkpoint", "ck.npz"]])
-def test_cli_unported_flags_raise(tmp_path, flags):
+def test_cli_formerly_unported_flags_run(tmp_path, monkeypatch, flags):
+    """The options that raised NotImplementedError before they were
+    ported now run on the CPU and write both output files: 18 marginal
+    rows of the coin fixture (from files, or with -u from its copy in a
+    sqlite file) and its one weight; a checkpoint, where asked for, is
+    written."""
     src = coin_fixture(str(tmp_path / "coin"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_cli.main([src, "-i", "10", "-q", "-o", str(tmp_path / "o"),
-                       "--device", "cpu"] + flags)
+    _publish_coin_db(str(tmp_path / "g.db"))
+    flags = ["sqlite://" + str(tmp_path / "g.db") if f == "DB" else f
+             for f in flags]
+    monkeypatch.chdir(tmp_path)
+    out = str(tmp_path / "o")
+    port_cli.main([src, "-l", "2", "-i", "10", "-q", "-o", out,
+                   "--device", "cpu"] + flags)
+    rows = np.loadtxt(os.path.join(out, "inference_result.out.text"),
+                      ndmin=2)
+    assert rows.shape == (18, 3)
+    assert ((rows[:, 2] >= 0) & (rows[:, 2] <= 1)).all()
+    w = np.loadtxt(os.path.join(out, "inference_result.out.weights.text"),
+                   ndmin=2)
+    assert w.shape == (1, 2)
+    if "--checkpoint" in flags:
+        assert os.path.exists("ck.npz") and os.path.exists("ck.npz.learn")
+
+
+def _cli_out(src, out, *flags):
+    port_cli.main([src, "-o", out, "-q", "--seed", "5", "--device", "cpu"] +
+                  list(flags))
+    return [open(os.path.join(out, name), "rb").read() for name in
+            ("inference_result.out.text",
+             "inference_result.out.weights.text")]
+
+
+@pytest.mark.parametrize("engine", ["xla", "auto"])
+def test_cli_checkpoint_resume(tmp_path, engine):
+    """--checkpoint (tests/test_cli.py:44-66 on the coin fixture): a run
+    interrupted after 80 epochs (2 chunks of 40) and resumed to 120
+    writes the uninterrupted chunked run's marginals, byte for byte, and
+    counts one resume. Under --engine xla the chunked run also equals
+    the run in one call (GibbsEngine draws at absolute epoch indices);
+    under auto the kernels' seed restarts each chunk
+    (numbskull_tpu/numbskull.py:343-349), so resume-exactness is the
+    guarantee."""
+    from numbskull_tpu_torch.observability import metrics
+    src = coin_fixture(str(tmp_path / "coin"))
+    eng = ["--engine", engine]
+    whole = _cli_out(src, str(tmp_path / "a"), "-i", "120", *eng)
+    ck = str(tmp_path / "ck.npz")
+    chunked = _cli_out(src, str(tmp_path / "b"), "-i", "120", *eng,
+                       "--checkpoint", ck, "--checkpoint_every", "40")
+    if engine == "xla":
+        assert chunked == whole
+    ck2 = str(tmp_path / "ck2.npz")
+    _cli_out(src, str(tmp_path / "x"), "-i", "80", *eng, "--checkpoint",
+             ck2, "--checkpoint_every", "40")
+    metrics.reset()
+    resumed = _cli_out(src, str(tmp_path / "c"), "-i", "120", *eng,
+                       "--checkpoint", ck2, "--checkpoint_every", "40")
+    assert resumed == chunked
+    counters = metrics.snapshot()["counters"]
+    assert counters["inference.resumes"] == 1
+    assert counters["inference.epochs"] == 40
+
+
+@pytest.mark.parametrize("engine", ["xla", "auto"])
+def test_cli_learning_checkpoint_resume(tmp_path, engine):
+    """--checkpoint covers learning (tests/test_cli.py:69-97): weights,
+    both chains and the step size's epoch index go to <ck>.learn; a
+    learning run interrupted after 80 epochs and resumed to 120 writes
+    the uninterrupted chunked run's weights, byte for byte, and counts
+    one resume; relaunching the finished run with diagnostics on (no -q)
+    does not crash."""
+    from numbskull_tpu_torch.observability import metrics
+    src = coin_fixture(str(tmp_path / "coin"))
+    eng = ["--engine", engine]
+    ck = str(tmp_path / "ck.npz")
+    chunked = _cli_out(src, str(tmp_path / "a"), "-l", "120", "-i", "5",
+                       *eng, "--checkpoint", ck, "--checkpoint_every", "40")
+    assert os.path.exists(ck + ".learn")
+    ck2 = str(tmp_path / "ck2.npz")
+    _cli_out(src, str(tmp_path / "x"), "-l", "80", "-i", "5", *eng,
+             "--checkpoint", ck2, "--checkpoint_every", "40")
+    metrics.reset()
+    resumed = _cli_out(src, str(tmp_path / "c"), "-l", "120", "-i", "5",
+                       *eng, "--checkpoint", ck2, "--checkpoint_every", "40")
+    assert resumed[1] == chunked[1]
+    assert float(chunked[1].split()[1]) != 0.0        # learning moved it
+    counters = metrics.snapshot()["counters"]
+    assert counters["learning.resumes"] == 1
+    assert counters["learning.epochs"] == 40
+    port_cli.main([src, "-l", "120", "-i", "5", "-o", str(tmp_path / "c"),
+                   "--seed", "5", "--device", "cpu", *eng, "--checkpoint",
+                   ck2, "--checkpoint_every", "40"])
+
+
+def test_cli_checkpoint_every_zero_terminates(tmp_path):
+    """--checkpoint_every 0 clamps to 1 (tests/test_cli.py:100-105): the
+    run ends, its checkpoint holds 3 epochs."""
+    from numbskull_tpu_torch.checkpoint import load_checkpoint
+    src = coin_fixture(str(tmp_path / "coin"))
+    ck = str(tmp_path / "ck.npz")
+    port_cli.main([src, "-i", "3", "-o", str(tmp_path), "-q", "--device",
+                   "cpu", "--checkpoint", ck, "--checkpoint_every", "0"])
+    assert os.path.exists(ck)
+    assert load_checkpoint(ck, "cpu")[2] == {"epochs_done": 3}
+
+
+def test_remaining_api_surface():
+    """burnIn, getFactorGraph, device_memory_stats and is_coordinator
+    (tests/test_cli.py:150-164): burnIn moves the free chain and tallies
+    nothing, on the kernels and on --engine xla."""
+    from numbskull_tpu_torch.observability import device_memory_stats
+    from numbskull_tpu_torch.parallel.multihost import is_coordinator
+
+    for engine in ("auto", "xla"):
+        ns = port_cli.NumbSkull(quiet=True, device="cpu", engine=engine)
+        ns.loadFactorGraph(*coin_model(40, evidence=True))
+        fg = ns.getFactorGraph(0)
+        before = fg.state.var_value.clone()
+        fg.burnIn(3, sample_evidence=True)
+        assert fg is ns.factorGraphs[0]
+        assert not torch.equal(fg.state.var_value, before)
+        assert int(fg.state.count.sum()) == 0
+        assert fg.inference_epochs_done == 0
+    stats = device_memory_stats()
+    assert isinstance(stats, list) and "device" in stats[0]
+    assert is_coordinator() is True        # single-process
 
 
 def test_cli_engine_hbm_writes_the_itemgrid_bytes(tmp_path):
@@ -184,10 +322,13 @@ def test_cli_learning_diagnostics(tmp_path, capsys):
 def test_port_imports_no_jax():
     """In a fresh interpreter, after a learning and an inference run on
     the CPU (engine 'hbm'), a lattice run, the graph-sharded engine's
-    run, run_emulated and learn, both partitioned engines, a graph the
-    kernels refuse (cardinality 130, on the tensor-op engine), both
-    gathers and an import of every experiment driver: no jax and no
-    numbskull_tpu (the test process has imported both)."""
+    run, run_emulated and learn, both partitioned engines, checkpointed
+    learning and inference under engine 'xla' inside a profiler trace,
+    run_resilient, device_memory_stats, a sqlite round trip through
+    dbsource, a graph the kernels refuse (cardinality 130, on the
+    tensor-op engine), both gathers and an import of every experiment
+    driver: no jax and no numbskull_tpu (the test process has imported
+    both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
@@ -221,6 +362,26 @@ def test_port_imports_no_jax():
             "b.inference(1, 2)\n"
             "e = bsp.BSPEngine(*m[:4], part, device='cpu')\n"
             "e.inference(e.init_states(), torch.Generator(), 2)\n"
+            "import os, sqlite3, tempfile\n"
+            "from numbskull_tpu_torch import dbsource\n"
+            "from numbskull_tpu_torch.resilience import run_resilient\n"
+            "from numbskull_tpu_torch.observability import (annotate, "
+            "device_memory_stats, trace)\n"
+            "tmp = tempfile.mkdtemp()\n"
+            "ns = cli.NumbSkull(n_learning_epoch=2, n_inference_epoch=2,\n"
+            "                   quiet=True, device='cpu', engine='xla',\n"
+            "                   checkpoint=os.path.join(tmp, 'ck'))\n"
+            "ns.loadFactorGraph(*coin_model(4))\n"
+            "ns.learning(out=False)\n"
+            "with trace(tmp), annotate('x'):\n"
+            "    ns.inference(out=False)\n"
+            "g = ns.factorGraphs[0].engine(True)\n"
+            "run_resilient(g, g.init_state(), 1, 4, os.path.join(tmp, 'r'),"
+            " chunk=2)\n"
+            "device_memory_stats()\n"
+            "c = sqlite3.connect(':memory:').cursor()\n"
+            "dbsource.write_graph_to_db(c, 'coin', *m[:4])\n"
+            "dbsource.get_fg_data(c)\n"
             "from numbskull_tpu_torch.models import potts_grid\n"
             "from numbskull_tpu_torch.ops.gibbs import GibbsEngine\n"
             "ns = cli.NumbSkull(n_learning_epoch=2, n_inference_epoch=2,\n"

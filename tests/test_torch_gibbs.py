@@ -54,8 +54,7 @@ def test_gibbs_engine_coin_marginals():
     """Coin marginals within 0.02 of the exact joint."""
     a, b, c = 0.3, -0.2, 0.4
     eng = GibbsEngine(_coin(200, a, b, c), device="cpu")
-    st = eng.inference(eng.init_state(), make_generator(1, "cpu"),
-                       epochs=400, burn=30)
+    st = eng.inference(eng.init_state(), 1, epochs=400, burn=30)
     m = eng.marginals(st, 400)
     ex = coin_exact_marginal(a, b, c)
     assert abs(m[0::2, 1].mean() - (ex[2] + ex[3])) < 0.02
@@ -72,8 +71,7 @@ def test_gibbs_engine_matches_jax_engine_on_lf():
     w["initialValue"] = [0.4, 0.6, 0.3, 0.9]
     eng = GibbsEngine(compile_graph(w, v, f, fm, domain_mask=dm),
                       device="cpu")
-    st = eng.inference(eng.init_state(), make_generator(2, "cpu"),
-                       epochs=400, burn=20)
+    st = eng.inference(eng.init_state(), 2, epochs=400, burn=20)
     got = eng.marginals(st, 400)
     wj, vj, fj, fmj, dmj, _ = jax_lf_model(*args, copies=150, seed=2)
     wj["isFixed"] = True
@@ -103,8 +101,8 @@ def test_gibbs_engine_learning_recovers_coin_weights(lp):
     eng = GibbsEngine(compile_graph(w, v, f, fm, domain_mask=dm),
                       device="cpu")
     step = 0.1 if lp.grad_agg == "mean" else 0.0005
-    st = eng.learn(eng.init_state(), make_generator(0, "cpu"), epochs=100,
-                   stepsize=step, decay=0.99, burn=5, lp=lp)
+    st = eng.learn(eng.init_state(), 0, epochs=100, stepsize=step,
+                   decay=0.99, burn=5, lp=lp)
     got = st.weight_value.numpy()
     assert np.abs(got - truth).max() < 0.2, got
 
@@ -139,8 +137,7 @@ def test_gibbs_engine_external_potentials():
     eng = GibbsEngine(_istrue_graph(n, wt), device="cpu")
     ext = np.zeros((n, 3), np.float32)
     ext[:, 0], ext[:, 1], ext[:, 2] = 0.5, -0.25, 7.0
-    st = eng.inference(eng.init_state(), make_generator(4, "cpu"),
-                       epochs=100, ext_pot=ext)
+    st = eng.inference(eng.init_state(), 4, epochs=100, ext_pot=ext)
     p1 = eng.marginals(st, 100)[:, 1].mean()
     want = 1.0 / (1.0 + np.exp(-((wt - 0.25) - (-wt + 0.5))))
     assert abs(p1 - want) < 0.01
@@ -148,7 +145,7 @@ def test_gibbs_engine_external_potentials():
 
 def test_gibbs_engine_learn_ext_defaults_to_both_chains():
     """learn(ext_pot=E) without ext_pot_evid == learn(ext_pot=E,
-    ext_pot_evid=E) from the same generator seed: the clamped chain
+    ext_pot_evid=E) from the same seed: the clamped chain
     takes E (numbskull_tpu/ops/gibbs.py:451-453)."""
     w, v, f, fm, dm, _ = coin_model(50, 0.8, -0.5, 0.4, evidence=True,
                                     weight_init=(0.0, 0.0, 0.0),
@@ -156,8 +153,8 @@ def test_gibbs_engine_learn_ext_defaults_to_both_chains():
     eng = GibbsEngine(compile_graph(w, v, f, fm, domain_mask=dm),
                       device="cpu")
     e = np.random.default_rng(0).normal(size=(len(v), 2)).astype(np.float32)
-    outs = [eng.learn(eng.init_state(), make_generator(5, "cpu"), epochs=3,
-                      stepsize=0.1, burn=1, ext_pot=e, **kw)
+    outs = [eng.learn(eng.init_state(), 5, epochs=3, stepsize=0.1,
+                      burn=1, ext_pot=e, **kw)
             for kw in ({}, {"ext_pot_evid": e})]
     for name in ("var_value", "var_value_evid", "weight_value"):
         assert torch.equal(getattr(outs[0], name), getattr(outs[1], name))
@@ -181,13 +178,11 @@ def test_gibbs_engine_leaves_evidence_and_frozen_rows():
     fz = torch.as_tensor(frozen)
     st0 = eng.init_state()
     keep = st0.var_value.clone()
-    st = eng.inference(st0, make_generator(6, "cpu"), epochs=20,
-                       sample_evidence=False)
+    st = eng.inference(st0, 6, epochs=20, sample_evidence=False)
     assert torch.equal(st0.var_value, keep)
     assert torch.equal(st.var_value[ev | fz], keep[ev | fz])
     assert int(st.count[ev | fz].sum()) == 0
     assert not torch.equal(st.var_value, keep)
-    st = eng.learn(st, make_generator(7, "cpu"), epochs=5, stepsize=0.1,
-                   burn=2)
+    st = eng.learn(st, 7, epochs=5, stepsize=0.1, burn=2)
     assert torch.equal(st.var_value[fz], keep[fz])
     assert torch.equal(st.var_value_evid[fz | ev], keep[fz | ev])

@@ -30,6 +30,7 @@ from numbskull_tpu_torch.models import ising_grid as port_ising_grid
 from numbskull_tpu_torch.models import potts_grid as port_potts_grid
 from numbskull_tpu_torch.observability import metrics
 from numbskull_tpu_torch.ops import itemgrid as pig
+from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 from test_torch_itemgrid import schedule_from_jax_plan
 from test_torch_learn import learn_schedule_from_jax_plan
 
@@ -116,7 +117,8 @@ def test_hbm_runs_graphs_the_tpu_hbm_engine_refuses(graph):
 def test_factor_graph_engine_argument():
     """FactorGraph takes the JAX package's engine= argument: 'auto',
     'itemgrid' and 'hbm' run the kernels and are counted once per graph;
-    'xla' is not ported; other names raise."""
+    'xla' runs the tensor-op GibbsEngine for both sample_evidence flags,
+    counted the same way and with no fallback; other names raise."""
     w, v, f, fm, dm, _ = port_ising_grid(8, 8, weight=0.25)
     cg = port_compile_graph(w, v, f, fm, domain_mask=dm)
     metrics.reset()
@@ -126,8 +128,15 @@ def test_factor_graph_engine_argument():
     assert metrics.snapshot()["counters"] == {
         "engine.requested.hbm": 1.0, "inference.epochs": 6.0,
         "inference.variable_updates": 6.0 * cg.n_vars}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_cli.FactorGraph(cg, 0, device="cpu", engine="xla")
+    metrics.reset()
+    fg = port_cli.FactorGraph(cg, 0, device="cpu", engine="xla")
+    fg.inference(0, 3, sample_evidence=True)
+    assert isinstance(fg.engine(True), GibbsEngine)
+    assert fg.engine(False) is fg.engine(True)
+    assert int(fg.state.count.sum()) == 3 * cg.n_vars
+    assert metrics.snapshot()["counters"] == {
+        "engine.requested.xla": 1.0, "inference.epochs": 3.0,
+        "inference.variable_updates": 3.0 * cg.n_vars}
     with pytest.raises(ValueError, match="unknown engine"):
         port_cli.FactorGraph(cg, 0, device="cpu", engine="vmem")
     metrics.reset()
