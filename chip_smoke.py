@@ -128,9 +128,10 @@ Phases (each one that fails exits non-zero; nothing is retried):
    no-reuse time (every window once from device memory);
    the time at 2k iterations must be 1.8-2.2x the time at k, k doubled
    from 1000 until the call at k takes 1 ms (a hoisted loop fails). (c)
-   Eight drivers of ``numbskull_tpu_torch/experiments`` (M6's seven
-   and ``gather_rates``) at a smoke size, their TSVs checked (columns,
-   ``ok``, ``engine``): the main path of both gather kernels.
+   Ten drivers of ``numbskull_tpu_torch/experiments`` (M6's seven,
+   ``gather_rates``, ``scaling`` and ``multiproc_scaling``, the last
+   with one 2-process gloo mesh) at a smoke size, their TSVs checked
+   (columns, ``ok``, ``engine``): the main path of both gather kernels.
 11. Checkpoints, ``--engine xla``, the DB source, ``burnIn`` and the
    profiler hooks, each path driven with the launch counts set to 0
    just before it and read just after: (a) the CLI on the Ising of
@@ -154,6 +155,22 @@ Phases (each one that fails exits non-zero; nothing is retried):
    ``observability.trace`` around one more chunk of (a) holding the
    ``nsx.chunk`` region and the sweep kernel, and
    ``device_memory_stats``.
+12. The (chains, graph) mesh engine (``parallel/sharded.
+   ShardedGibbsEngine``, tensor ops, no kernel of its own: no itemgrid
+   launch is allowed) on the Ising of phase 3 for inference (2 burn-in +
+   5 epochs) and on phase 8's learnable grid with 30 % evidence for
+   learning (1 burn-in + 2 epochs, L2; and 2 epochs of an L1 schedule
+   whose weights stay dyadic): (a) the in-process (1, 1) mesh ==
+   ``GibbsEngine`` seeded ``chain_seed(seed, 0)``, values, counts,
+   weights and both chains bit-equal; (b) in-process (1, 2), (1, 4),
+   (2, 1) and (2, 2): chain c of every shape == chain c of (2, 1) in
+   inference, graph-sharded learning == the unsharded shape with the
+   same chains, the pooled marginals finite and near 0.5; (c) 4 gloo
+   processes on the card as a (2, 2) ``global_mesh``: every rank ==
+   the in-process (2, 2) chain it runs, and a world of one ``nccl``
+   process at (1, 1) == (a); (d) ms per inference and learning epoch at
+   each shape and in both process runs, with the share of the wall time
+   spent in the axis sums (the collectives).
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -172,7 +189,9 @@ gather`` phases 1 and 10, ``python3 chip_smoke.py learn`` phases 1, 2
 chip_smoke.py sweep`` phases 1, 2 (the sweep), 3 with the sweep's rates
 on its graph, and 7, ``python3 chip_smoke.py lattice`` phases 1, 2 (the
 lattice) and 6, ``python3 chip_smoke.py checkpoint`` phases 1 and 11,
-with a kernels line of kernels #1 and #2 from phase 11's own runs.
+with a kernels line of kernels #1 and #2 from phase 11's own runs,
+``python3 chip_smoke.py sharded`` phases 1 and 12, with an empty
+kernels line (no kernel runs on the mesh engine's path).
 """
 
 from __future__ import annotations
@@ -2414,12 +2433,13 @@ def _gather_compare(torch):
 
 
 def _smoke_drivers(torch, workdir):
-    """Phase 10 (c): the eight drivers at a smoke size, their TSVs
+    """Phase 10 (c): the ten drivers at a smoke size, their TSVs
     checked. The gather kernels' launch counts are set to 0 just before
     and read just after."""
     from numbskull_tpu_torch.experiments import (
         common, degree_sweep, engine_tradeoff, gather_rates, hbm_scale,
-        micro_gather, micro_gather2, micro_gather_xla, profile_itemgrid)
+        micro_gather, micro_gather2, micro_gather_xla, multiproc_scaling,
+        profile_itemgrid, scaling)
     from numbskull_tpu_torch.ops import gather as G
     runs = (
         ("micro_gather", lambda p: micro_gather.run(
@@ -2443,7 +2463,10 @@ def _smoke_drivers(torch, workdir):
             p, DEVICE, sizes=(("sweep_A", 1 << 20), ("sweep_B", 1 << 24)),
             sweep_r=1 << 16, span_nx=1 << 24,
             timing=(("f32_row", 16, 200, 16), ("roll", 16, 200, 16)),
-            timing2=((16, 200, 16),), calls=3)))
+            timing2=((16, 200, 16),), calls=3)),
+        ("scaling", lambda p: scaling.run(p, 128, DEVICE, points=(2, 10))),
+        ("multiproc_scaling", lambda p: multiproc_scaling.run(
+            p, 4096, 6, DEVICE, meshes=(2,), timeout=600)))
     G.GATHER_LAUNCHES = G.SHIFTED_LAUNCHES = 0
     for name, fn in runs:
         t0 = time.perf_counter()
@@ -2464,6 +2487,10 @@ def _smoke_drivers(torch, workdir):
         if name == "engine_tradeoff" and any(
                 r["itemgrid_ups"] == "fallback" for r in rows):
             fail("driver engine_tradeoff: a kernel engine fell back")
+        if name == "multiproc_scaling" and [
+                (r["engine"], r["nproc"]) for r in rows] != [
+                ("sharded", "1"), ("sharded", "2"), ("bsp", "1")]:
+            fail("driver multiproc_scaling: rows %s" % rows)
         if name == "profile_itemgrid" and not any(
                 "itemgrid" in r["kernel"] or "sweep" in r["kernel"]
                 for r in rows):
@@ -2909,6 +2936,252 @@ def checkpoint_records(torch, r):
     return [sweep, lrec]
 
 
+# phase 12: (seed, epochs, burn) of inference, (seed, epochs, stepsize,
+# decay, burn) of learning; the in-process shapes beside (1, 1)
+SHARDED_RUN = (5, 5, 2)
+SHARDED_LEARN = (9, 2, 0.05, 0.99, 1)
+SHARDED_SHAPES = ((1, 2), (1, 4), (2, 1), (2, 2))
+# learning whose weights stay dyadic (summed integer gradients, a step of
+# 2^-20, an L1 step of 2^-19 per truncation), so that any sum order of the
+# shards' partials is exact: (seed, epochs, stepsize, decay, burn)
+SHARDED_DYADIC = (13, 2, 2.0 ** -20, 1.0, 1)
+
+
+def _sharded_lps():
+    """Phase 12's L2 learning (phase 8's) and its dyadic L1 learning."""
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    return _mc_lp(), LearnParams(regularization=1, reg_param=1.0,
+                                 truncation=2, grad_agg="sum")
+
+
+def _sharded_runs(eng, leng):
+    """Phase 12's three runs on a pair of mesh engines: inference on the
+    Ising (``eng``), L2 and dyadic L1 learning on the learnable grid
+    (``leng``)."""
+    l2, l1 = _sharded_lps()
+    st = eng.inference(eng.init_state(), *SHARDED_RUN)
+    seed, epochs, step, decay, burn = SHARDED_LEARN
+    ls = leng.learn(leng.init_state(), seed, epochs, step, decay, burn,
+                    lp=l2)
+    seed, epochs, step, decay, burn = SHARDED_DYADIC
+    l1s = leng.learn(leng.init_state(), seed, epochs, step, decay, burn,
+                     lp=l1)
+    return st, ls, l1s
+
+
+def _axis_sum_share(torch, eng, fn) -> float:
+    """Share of ``fn()``'s wall time spent in the engine's two axis sums
+    (the graph sum of partial potentials and gradients, the chains mean),
+    each timed between two synchronizes."""
+    spent = [0.0]
+
+    def timed(f):
+        def g(x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(x)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return g
+    eng._graph_sum = timed(eng._graph_sum)
+    eng._chains_mean = timed(eng._chains_mean)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._graph_sum, eng._chains_mean
+    return spent[0] / wall
+
+
+def _sharded_rates(torch, eng, leng):
+    """(inference ms, learning ms) per epoch, epoch-differenced between
+    fixed counts (1 and 4), and the axis sums' share of a 3-epoch
+    inference and learning call."""
+    from numbskull_tpu_torch.benchutil import epoch_rate
+    st, ls = eng.init_state(), leng.init_state()
+    lp = _mc_lp()
+    kw = dict(reps=2, device=DEVICE, min_delta=0.0, max_epochs=4)
+    inf = epoch_rate(lambda ep, r: eng.inference(st, 1 + r, ep), 1, 1, 4,
+                     **kw)[1]
+    lrn = epoch_rate(lambda ep, r: leng.learn(ls, 1 + r, ep, 0.05, lp=lp),
+                     1, 1, 4, **kw)[1]
+    share_i = _axis_sum_share(torch, eng, lambda: eng.inference(st, 2, 3))
+    share_l = _axis_sum_share(torch, leng, lambda: leng.learn(
+        ls, 2, 3, 0.05, lp=lp))
+    return inf * 1e3, lrn * 1e3, share_i, share_l
+
+
+def _chain_of(s, c) -> dict:
+    """Chain c of a mesh state: its values, clamped values and tallies,
+    and the weights."""
+    return {"var_value": s.var_value[c], "var_value_evid":
+            s.var_value_evid[c], "count": s.count[c],
+            "weight_value": s.weight_value}
+
+
+def _sharded_worker(rank, group, shape, out_dir):
+    """One process of phase 12 (c): a ``global_mesh`` of ``shape`` on
+    the card, phase 12's runs and rates; its state and numbers to
+    ``out_dir``."""
+    import torch
+    from numbskull_tpu_torch.parallel import multihost
+    from numbskull_tpu_torch.parallel.sharded import ShardedGibbsEngine
+    infer, lcg = _mc_graphs()
+    eng = ShardedGibbsEngine(infer, multihost.global_mesh(*shape,
+                                                          device=DEVICE))
+    leng = ShardedGibbsEngine(lcg, multihost.global_mesh(*shape,
+                                                         device=DEVICE))
+    runs = _sharded_runs(eng, leng)
+    marg = eng.marginals(runs[0], SHARDED_RUN[1])
+    rates = _sharded_rates(torch, eng, leng)
+    torch.save({"chains": eng.mesh.chains, "shards": eng.mesh.shards,
+                "backend": torch.distributed.get_backend(group),
+                "runs": [{k: v.cpu() for k, v in _chain_of(s, 0).items()}
+                         for s in runs],
+                "marg_mean": float(marg[:, 1].mean()), "rates": rates},
+               os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def phase_sharded(torch, card):
+    """Phase 12: the (chains, graph) mesh engine (parallel/sharded) on
+    the Ising 1024x1024 of phase 3 and, for learning, phase 8's
+    learnable grid: (a) (1, 1) == GibbsEngine, (b) the in-process shapes
+    against each other, (c) 4 gloo processes on the card == in-process
+    (2, 2), a world of one nccl process == (a), (d) the rates. Returns
+    the rates."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import GibbsEngine
+    from numbskull_tpu_torch.parallel import multihost
+    from numbskull_tpu_torch.parallel.mesh import make_mesh
+    from numbskull_tpu_torch.parallel.sharded import (ShardedGibbsEngine,
+                                                      chain_seed)
+    import numpy as np
+    log("== phase 12: the (chains, graph) mesh engine, Ising %dx%d; %s"
+        % (GRID, GRID, card))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    infer, lcg = _mc_graphs()
+    log("  graphs compiled in %.2f s: %d variables, %d factors, %d colors"
+        % (time.perf_counter() - t0, infer.n_vars, infer.n_factors,
+           infer.n_colors))
+
+    fields = ("var_value", "var_value_evid", "count", "weight_value")
+
+    def same(a, b):
+        return all(_bits_equal(torch, a[k].cpu(), b[k].cpu()) for k in a)
+
+    # (a) (1, 1) against GibbsEngine seeded chain_seed(seed, 0)
+    engines = {}
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    for shape in ((1, 1),) + SHARDED_SHAPES:
+        t0 = time.perf_counter()
+        eng = ShardedGibbsEngine(infer, make_mesh(*shape, device=DEVICE))
+        leng = ShardedGibbsEngine(lcg, make_mesh(*shape, device=DEVICE))
+        runs = _sharded_runs(eng, leng)
+        torch.cuda.synchronize()
+        engines[shape] = (eng, leng, runs)
+        log("  %s built and run in %.2f s" % (shape,
+                                             time.perf_counter() - t0))
+    if pig.KERNEL_LAUNCHES or pig.LEARN_LAUNCHES:
+        fail("the mesh engine launched an itemgrid kernel")
+    g, gl = GibbsEngine(infer, device=DEVICE), GibbsEngine(lcg,
+                                                           device=DEVICE)
+    seed, epochs, burn = SHARDED_RUN
+    refs = [{k: getattr(r, k) for k in fields} for r in (
+        g.inference(g.init_state(), chain_seed(seed, c), epochs, burn=burn)
+        for c in range(2))]
+    seed, epochs, step, decay, burn = SHARDED_LEARN
+    lref = gl.learn(gl.init_state(), chain_seed(seed, 0), epochs, step,
+                    decay, burn, lp=_sharded_lps()[0])
+    st, ls, _ = engines[(1, 1)][2]
+    ok_a = same(_chain_of(st, 0), refs[0]) and \
+        same(_chain_of(ls, 0), {k: getattr(lref, k) for k in fields})
+    log("  (a) (1, 1) == GibbsEngine(chain_seed(seed, 0)): inference (%d "
+        "burn-in + %d epochs: values, counts) and L2 learning (%d burn-in + "
+        "%d epochs: weights %s, both chains): %s"
+        % (SHARDED_RUN[2], SHARDED_RUN[1], SHARDED_LEARN[4],
+           SHARDED_LEARN[1], ls.weight_value.tolist(), ok_a))
+    if not ok_a:
+        fail("the (1, 1) mesh differs from GibbsEngine")
+
+    # (b) the in-process shapes against GibbsEngine and each other
+    base = engines[(1, 1)][2]
+    two = engines[(2, 1)][2]
+    for shape in SHARDED_SHAPES:
+        runs = engines[shape][2]
+        ok = all(same(_chain_of(runs[0], c), refs[c])
+                 for c in range(shape[0]))
+        like = base if shape[0] == 1 else two
+        ok_l = same(_chain_of(runs[2], 0), _chain_of(like[2], 0)) and \
+            (shape[0] == 1 or same(_chain_of(runs[2], 1),
+                                   _chain_of(like[2], 1)))
+        ok_2 = shape[0] > 1 or same(_chain_of(runs[1], 0),
+                                    _chain_of(base[1], 0))
+        log("  (b) %s: inference chain c == GibbsEngine(chain_seed(seed, "
+            "c)): %s; dyadic L1 "
+            "learning == %s: %s (weights %s); L2 learning == (1, 1): %s"
+            % (shape, ok, "(1, 1)" if shape[0] == 1 else "(2, 1)", ok_l,
+               runs[2].weight_value.tolist(),
+               ok_2 if shape[0] == 1 else "-"))
+        if not (ok and ok_l and ok_2):
+            fail("mesh shape %s differs from the unsharded forms"
+                 % (shape,))
+    marg = engines[(2, 2)][0].marginals(engines[(2, 2)][2][0],
+                                        SHARDED_RUN[1])
+    log("  (b) (2, 2) pooled marginals: shape %s, mean P(x=1) %.5f, "
+        "finite %s" % (marg.shape, marg[:, 1].mean(),
+                       bool(np.isfinite(marg).all())))
+    if marg.shape != (infer.n_vars, infer.kmax) or \
+            not np.isfinite(marg).all() or \
+            not 0.3 < marg[:, 1].mean() < 0.7:
+        fail("phase 12 marginals out of range")
+
+    # (c) processes: 4 over gloo as (2, 2), one over nccl as (1, 1)
+    ref22 = engines[(2, 2)][2]
+    out = {}
+    for backend, size, shape, want in (("gloo", 4, (2,), ref22),
+                                       ("nccl", 1, (1,), base)):
+        with tempfile.TemporaryDirectory(prefix="nsx_mesh_") as tmp:
+            t0 = time.perf_counter()
+            multihost.spawn(_sharded_worker, size, (shape, tmp),
+                            backend=backend, timeout=600)
+            wall = time.perf_counter() - t0
+            res = [torch.load(os.path.join(tmp, "rank%d.pt" % r),
+                              weights_only=False) for r in range(size)]
+        ok = all(same(_chain_of(w, r["chains"][0]), got)
+                 for r in res for got, w in zip(r["runs"], want))
+        log("  (c) %d %s process%s as %s: backend %s, every rank's values, "
+            "counts, L2 and L1 weights and both chains == in-process: %s; "
+            "mean P(x=1) %.5f; spawn to exit %.1f s"
+            % (size, backend, "es" if size > 1 else "",
+               "(2, 2)" if size > 1 else "(1, 1)", res[0]["backend"], ok,
+               res[0]["marg_mean"], wall))
+        if not ok:
+            fail("%s processes differ from the in-process mesh" % backend)
+        out[(backend, size)] = res[0]["rates"]
+
+    # (d) rates
+    log("  (d) ms per epoch, epoch-differenced (1 and 4 epochs, best of "
+        "2, CUDA events), and the axis sums' share of a 3-epoch call "
+        "(synchronized around each sum); %s" % card)
+    rates = {}
+    for shape in ((1, 1),) + SHARDED_SHAPES:
+        eng, leng, _ = engines[shape]
+        rates[str(shape)] = _sharded_rates(torch, eng, leng)
+    rates["(2, 2) 4 gloo processes"] = out[("gloo", 4)]
+    rates["(1, 1) 1 nccl process"] = out[("nccl", 1)]
+    for name, (inf, lrn, si, sl) in rates.items():
+        log("  (d) %-26s inference %9.3f ms/epoch (sums %.3f), learning "
+            "%9.3f ms/epoch (sums %.3f)" % (name, inf, si, lrn, sl))
+    log("  phase 12 took %.2f s" % (time.perf_counter() - t_phase))
+    return rates
+
+
 def finish(torch, card, records):
     log(card)
     print(json.dumps({"kernels": records}))
@@ -3027,6 +3300,10 @@ def main():
         finish(torch, card, checkpoint_records(
             torch, phase_checkpoint(torch, card)))
         return
+    if sys.argv[1:] == ["sharded"]:   # phases 1 and 12 only
+        phase_sharded(torch, card)
+        finish(torch, card, [])
+        return
     if sys.argv[1:] == ["lattice"]:   # phases 1, 2 (the lattice), 6
         worst_s = phase_stencil_compare(torch)
         launches, lattice = phase_lattice(torch, card)
@@ -3050,6 +3327,7 @@ def main():
     bspr = phase_bsp(torch, card)
     gatherr = phase_gather(torch, card)
     phase_checkpoint(torch, card)
+    phase_sharded(torch, card)
     records = [
         sweep_record(launches, max(worst, err3, err5, hbm["err"]),
                      rates[("ising1024", "infer")], sweep_cost, hbm),

@@ -1,5 +1,5 @@
 #!/bin/sh
-# Run the nine experiment drivers of numbskull_tpu_torch at their full
+# Run the eleven experiment drivers of numbskull_tpu_torch at their full
 # sizes (the JAX drivers' defaults) on the card, one process each, from
 # the root of a checkout:
 #
@@ -12,7 +12,8 @@ out=${1:?usage: run_drivers.sh OUTDIR}
 mkdir -p "$out"
 status=0
 for d in micro_gather micro_gather2 micro_gather_xla degree_sweep \
-         hbm_scale engine_tradeoff profile_itemgrid lattice_rates gather_rates; do
+         hbm_scale engine_tradeoff profile_itemgrid lattice_rates gather_rates \
+         scaling multiproc_scaling; do
     start=$(date +%s)
     if python3 -m "numbskull_tpu_torch.experiments.$d" "$out/$d.tsv" \
             > "$out/$d.log" 2>&1; then

@@ -19,7 +19,11 @@ index), as the JAX engine folds every epoch's key at its absolute index
 (numbskull_tpu/ops/gibbs.py:609-625): a run in chunks that pass their
 ``epoch_offset`` equals the same run in one call, bit for bit. Runs
 agree with the JAX engine in distribution, not bit for bit. The
-partitioned engine ``parallel/bsp.BSPEngine`` runs one per part.
+partitioned engine ``parallel/bsp.BSPEngine`` runs one per part; the
+mesh engine ``parallel/sharded.ShardedGibbsEngine`` runs the same color
+steps from their pieces (``step_plan``, ``infer_store``,
+``learn_draws``, ``learn_grads``, ``update_weights``, ``store_rows``)
+with its sums over shards and chains between them.
 """
 
 from __future__ import annotations
@@ -208,60 +212,75 @@ def epoch_seed(seed: int, tag: int, index: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0])
 
 
-def _store(chain: torch.Tensor, pd: dict, rows: torch.Tensor) -> None:
+def step_plan(plan: ColorPlan, device, items=None) -> dict:
+    """``plan_tensors(plan, device, items)`` plus the color's valid rows
+    (``row_valid``) and their variables (``vid_valid``), which
+    ``store_rows`` writes."""
+    pd = plan_tensors(plan, device, items=items)
+    pd["row_valid"] = torch.nonzero(pd["cv_valid"]).flatten()
+    pd["vid_valid"] = pd["cv_vid"][pd["row_valid"]]
+    return pd
+
+
+def store_rows(chain: torch.Tensor, pd: dict, rows: torch.Tensor) -> None:
     """Write the color's new values ``rows`` (R,) into ``chain`` at its
     valid rows' variables (pad rows are dropped)."""
     chain[pd["vid_valid"]] = rows[pd["row_valid"]].to(chain.dtype)
+
+
+def infer_store(pd: dict, pot: torch.Tensor, sample_evidence: bool,
+                var_value: torch.Tensor, generator: torch.Generator) -> None:
+    """Draw one color's free-chain values from its potentials ``pot``
+    and store them, in place, at the rows that may change."""
+    new = draw(pot, pd["cv_card"], generator)
+    isev = pd["cv_isev"]
+    upd = pd["cv_valid"] & ((isev == EV_QUERY) |
+                            (bool(sample_evidence) & (isev == EV_EVIDENCE)))
+    out = torch.where(upd, new, var_value[pd["cv_vid"]].to(new.dtype))
+    store_rows(var_value, pd, out)
 
 
 def _color_step_infer(pd: dict, kmax: int, present, sample_evidence: bool,
                       var_value: torch.Tensor, weight_value: torch.Tensor,
                       generator: torch.Generator, ext_pot=None) -> None:
     """Resample one color block of the free chain, in place."""
-    pot = color_potentials(pd, kmax, present, var_value, weight_value,
-                           ext_pot)
-    new = draw(pot, pd["cv_card"], generator)
-    isev = pd["cv_isev"]
-    upd = pd["cv_valid"] & ((isev == EV_QUERY) |
-                            (bool(sample_evidence) & (isev == EV_EVIDENCE)))
-    out = torch.where(upd, new, var_value[pd["cv_vid"]].to(new.dtype))
-    _store(var_value, pd, out)
+    infer_store(pd, color_potentials(pd, kmax, present, var_value,
+                                     weight_value, ext_pot),
+                sample_evidence, var_value, generator)
 
 
-def _color_step_learn(pd: dict, kmax: int, present, lp: LearnParams,
-                      n_weights: int, weight_fixed: torch.Tensor,
-                      var_init: torch.Tensor, var_value: torch.Tensor,
-                      var_value_evid: torch.Tensor,
-                      weight_value: torch.Tensor, step: float,
-                      generator: torch.Generator, ext_pot=None,
-                      ext_pot_evid=None) -> torch.Tensor:
-    """One color block of the dual-chain SGD sweep: both chains update
-    in place; returns the new weights."""
+def learn_draws(pd: dict, pot_e: torch.Tensor, pot_p: torch.Tensor,
+                var_init: torch.Tensor, var_value: torch.Tensor,
+                var_value_evid: torch.Tensor,
+                generator: torch.Generator) -> tuple:
+    """One color's new values of the clamped chain (drawn first, from
+    ``pot_e``; evidence pinned at its initial value) and of the free
+    chain (from ``pot_p``): ``(e_val, p_val)``, one per row, with rows
+    that may not change (padding, frozen) keeping their old values."""
     isev = pd["cv_isev"]
-    valid = pd["cv_valid"]
     card = pd["cv_card"]
-
-    # clamped chain: evidence vars pinned at initialValue, others sampled
-    pot_e = color_potentials(pd, kmax, present, var_value_evid,
-                             weight_value,
-                             ext_pot if ext_pot_evid is None
-                             else ext_pot_evid)
     e_samp = draw(pot_e, card, generator)
     init_here = var_init[pd["cv_vid"]].to(e_samp.dtype)
     e_val = torch.where(isev == EV_EVIDENCE, init_here, e_samp)
-
-    # free chain: always sampled
-    pot_p = color_potentials(pd, kmax, present, var_value, weight_value,
-                             ext_pot)
     p_val = draw(pot_p, card, generator)
-
-    upd = valid & (isev != 4)
+    upd = pd["cv_valid"] & (isev != 4)
     e_val = torch.where(upd, e_val,
                         var_value_evid[pd["cv_vid"]].to(e_val.dtype))
     p_val = torch.where(upd, p_val, var_value[pd["cv_vid"]].to(p_val.dtype))
+    return e_val, p_val
 
-    # gradient = (eval at proposal on free chain) - (eval at evidence on
-    # clamped chain), per adjacent factor (reference learning.py:100-109)
+
+def learn_grads(pd: dict, present, lp: LearnParams, n_weights: int,
+                weight_fixed: torch.Tensor, var_value: torch.Tensor,
+                var_value_evid: torch.Tensor, e_val: torch.Tensor,
+                p_val: torch.Tensor) -> tuple:
+    """Per-weight gradient sums ``gw`` and counts ``nw`` (W,) over the
+    items of ``pd``: (eval at the proposal on the free chain) - (eval at
+    the evidence on the clamped chain), per adjacent factor (reference
+    learning.py:100-109)."""
+    isev = pd["cv_isev"]
+    valid = pd["cv_valid"]
+    upd = valid & (isev != 4)
     row = pd["it_row"]
     e_it, p_it = e_val[row], p_val[row]
     ev_e = eval_items_at(pd, present, var_value_evid, e_it)
@@ -273,36 +292,63 @@ def _color_step_learn(pd: dict, kmax: int, present, lp: LearnParams,
     include = include & vmask[row] & ~weight_fixed[pd["it_wid"]]
 
     grad = torch.where(include, (ev_p - ev_e) * pd["it_fv"], 0.0)
-    dev = weight_value.device
+    dev = e_val.device
     gw = torch.zeros(n_weights, dtype=torch.float32, device=dev).index_add_(
         0, pd["it_wid"], grad)
     nw = torch.zeros(n_weights, dtype=torch.float32, device=dev).index_add_(
         0, pd["it_wid"], include.to(torch.float32))
+    return gw, nw
 
+
+def update_weights(w: torch.Tensor, gw: torch.Tensor, nw: torch.Tensor,
+                   lp: LearnParams, step: float,
+                   coin: torch.Generator) -> torch.Tensor:
+    """The weights after one color step's gradient ``gw`` over ``nw``
+    counts; weights no item touched stay. Under L1 the truncation coin
+    draws (W,) uniforms from ``coin``."""
     # mean gradient per color step by default; 'sum' reproduces the
     # reference's aggregate movement (learning.py:111-125)
     touched = nw > 0
     if lp.grad_agg == "mean":
         gw = gw / torch.clamp(nw, min=1.0)
-    w = weight_value
     if lp.regularization == 2:
         shrink = 1.0 / (1.0 + lp.reg_param * step)
-        w = torch.where(touched, w * shrink - step * gw, w)
-    elif lp.regularization == 1:
+        return torch.where(touched, w * shrink - step * gw, w)
+    if lp.regularization == 1:
         w = torch.where(touched, w - step * gw, w)
         # truncated gradient (Langford et al. 2009), reference
         # learning.py:115-122: coin with prob 1/truncation, magnitude
         # reg_param * step * truncation, once per color step
-        u = torch.rand(w.shape, generator=generator, device=dev)
+        u = torch.rand(w.shape, generator=coin, device=w.device)
         l1delta = lp.reg_param * step * lp.truncation
         w_trunc = torch.where(w > 0, torch.clamp(w - l1delta, min=0.0),
                               torch.clamp(w + l1delta, max=0.0))
-        w = torch.where(touched & (u < 1.0 / lp.truncation), w_trunc, w)
-    else:
-        w = torch.where(touched, w - step * gw, w)
+        return torch.where(touched & (u < 1.0 / lp.truncation), w_trunc, w)
+    return torch.where(touched, w - step * gw, w)
 
-    _store(var_value, pd, p_val)
-    _store(var_value_evid, pd, e_val)
+
+def _color_step_learn(pd: dict, kmax: int, present, lp: LearnParams,
+                      n_weights: int, weight_fixed: torch.Tensor,
+                      var_init: torch.Tensor, var_value: torch.Tensor,
+                      var_value_evid: torch.Tensor,
+                      weight_value: torch.Tensor, step: float,
+                      generator: torch.Generator, ext_pot=None,
+                      ext_pot_evid=None) -> torch.Tensor:
+    """One color block of the dual-chain SGD sweep: both chains update
+    in place; returns the new weights."""
+    pot_e = color_potentials(pd, kmax, present, var_value_evid,
+                             weight_value,
+                             ext_pot if ext_pot_evid is None
+                             else ext_pot_evid)
+    pot_p = color_potentials(pd, kmax, present, var_value, weight_value,
+                             ext_pot)
+    e_val, p_val = learn_draws(pd, pot_e, pot_p, var_init, var_value,
+                               var_value_evid, generator)
+    gw, nw = learn_grads(pd, present, lp, n_weights, weight_fixed,
+                         var_value, var_value_evid, e_val, p_val)
+    w = update_weights(weight_value, gw, nw, lp, step, generator)
+    store_rows(var_value, pd, p_val)
+    store_rows(var_value_evid, pd, e_val)
     return w
 
 
@@ -324,7 +370,7 @@ class GibbsEngine:
         self.kmax = cg.kmax
         self.n_vars = cg.n_vars
         self.n_weights = cg.n_weights
-        self.plans = [self._plan(p) for p in cg.plans]
+        self.plans = [step_plan(p, self.device) for p in cg.plans]
         self.present = [present_types_of(p.it_ftype) for p in cg.plans]
         dev = self.device
         self.var_isev = torch.as_tensor(np.asarray(cg.var_isev, np.int64),
@@ -333,12 +379,6 @@ class GibbsEngine:
                                         device=dev)
         self.weight_fixed = torch.as_tensor(
             np.asarray(cg.weight_fixed, bool), device=dev)
-
-    def _plan(self, plan: ColorPlan) -> dict:
-        pd = plan_tensors(plan, self.device)
-        pd["row_valid"] = torch.nonzero(pd["cv_valid"]).flatten()
-        pd["vid_valid"] = pd["cv_vid"][pd["row_valid"]]
-        return pd
 
     # ---- state -----------------------------------------------------------
 

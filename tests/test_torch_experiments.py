@@ -17,7 +17,9 @@ from numbskull_tpu_torch.experiments import (common, degree_sweep,
                                              lattice_rates, lattice_tiles,
                                              micro_gather, micro_gather2,
                                              micro_gather_xla,
-                                             profile_itemgrid, sweep_rates)
+                                             multiproc_scaling,
+                                             profile_itemgrid, scaling,
+                                             sweep_rates)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,6 +45,11 @@ COLUMNS = {
     "profile_itemgrid": (["config"],                              # :67-73
                          ["phase", "kernel", "device_ms_per_epoch",
                           "epoch_ms", "busy_share", "median_gap_us"]),
+    "scaling": (["chains", "graph", "epoch_ms",                 # :48
+                 "total_updates_per_s", "efficiency"], []),
+    "multiproc_scaling": (["engine", "nproc", "devs_per_proc",   # :87-88
+                           "n_vars", "epoch_ms", "updates_per_s",
+                           "vs_1proc"], ["mesh"]),
     "sweep_rates": ([], sweep_rates.HEADER),    # no JAX counterpart
     "lattice_rates": ([], lattice_rates.HEADER),
     "gather_rates": ([], gather_rates.HEADER),
@@ -66,6 +73,10 @@ RUNS = {
                                                      epochs=2),
     "profile_itemgrid": lambda p: profile_itemgrid.run(p, 8, 2, "cpu",
                                                        scale=0.001),
+    "scaling": lambda p: scaling.run(p, 6, "cpu", n_dev=4,
+                                     points=(1, 2)),
+    "multiproc_scaling": lambda p: multiproc_scaling.run(
+        p, 16, 3, "cpu", meshes=(2,), timeout=120),
     "sweep_rates": lambda p: sweep_rates.run(p, "cpu", scale=0.0005,
                                              points=(1, 3)),
     "lattice_rates": lambda p: lattice_rates.run(p, "cpu", sides=(8, 12),
@@ -123,6 +134,17 @@ def test_driver_writes_its_tsv(tmp_path, name):
             (c, p) for c in ("ising8", "voting_deg10", "voting_deg50")
             for p in ("infer", "learn")]
         assert all(0 < _number(r["busy_share"]) for r in alls)
+    if name == "scaling":
+        assert [(r["chains"], r["graph"]) for r in rows] == [
+            ("1", "4"), ("2", "2"), ("4", "1")]
+        assert rows[0]["efficiency"] == "1.000"
+        assert all(_number(r["total_updates_per_s"]) > 0 for r in rows)
+    if name == "multiproc_scaling":
+        assert [(r["engine"], r["nproc"], r["devs_per_proc"])
+                for r in rows] == [("sharded", "1", "2"),
+                                   ("sharded", "2", "1"), ("bsp", "1", "4")]
+        assert rows[0]["vs_1proc"] == "1.000"
+        assert all(_number(r["updates_per_s"]) > 0 for r in rows)
     if name == "sweep_rates":
         assert [r["graph"] for r in rows] == [
             "ising22", "coin200", "lf100", "potts5_card32", "potts5_card128",

@@ -309,7 +309,8 @@ def test_gloo_two_processes_equal_in_process(tmp_path):
     x, counts = eng.run(*run_args)
     w, xl, xel = eng.learn(*learn_args, lp=lp)
     multihost.spawn(run_shard, 2, (cg, run_args, learn_args, lp,
-                                   str(tmp_path)), backend="gloo")
+                                   str(tmp_path)), backend="gloo",
+                    timeout=120)
     for r in range(2):
         got = torch.load(tmp_path / ("rank%d.pt" % r))
         assert got["shards"] == (r,) and got["n_g"] == 2
