@@ -5,7 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each one that fails exits non-zero; nothing is retried):
+Phases (each one that fails exits non-zero; nothing is retried; the
+full run takes phase 13 right after phase 2):
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
    and the build (``make -C native``, then nvcc of the sweep, learn,
@@ -171,6 +172,29 @@ Phases (each one that fails exits non-zero; nothing is retried):
    process at (1, 1) == (a); (d) ms per inference and learning epoch at
    each shape and in both process runs, with the share of the wall time
    spent in the axis sums (the collectives).
+13. Every factor function through kernels #1 and #2: (a) random graphs
+   with dyadic weights (``random_graph``, ``dp_graph``): each of the 25
+   codes alone, boolean at arity 1 to 4, at arity 13 (the 8-lane item
+   path; codes of free arity), with one row of 1,100 items (1 lane,
+   the learn step kernel at KMAX 2) and at cardinality 3 to 8 (the row
+   kernel), each under every map x draw; then every code mixed on
+   boolean and on categorical variables, and the DP model, under
+   ``GROUP_SCHEDULES``; each also learning under L2 and, but for the
+   hub and a13 graphs, L1 with learn_non_evidence and
+   ``grad_agg="sum"``: every draw, count and
+   weight equal to the plain version, each code's sweep paths (item
+   lanes and FAST, row template) and learn templates logged, and a code
+   that missed a path that takes it fails; (b) on every graph of (a),
+   ``ops/gibbs.color_potentials`` within 1e-4 x max(1, |potential|) of
+   ``golden.potential`` at a random state; (c) on three small graphs
+   (boolean, categorical, DP) the kernel's marginals over 20,000 epochs
+   within 0.02 of ``golden.exact_marginals``; (d) a data-programming model of 200,000
+   candidates x 10 LFs (2.2 M variables, 9 M factors) through the CLI
+   with ``-l 20 -i 100 -b 10 --engine itemgrid`` (the launches as
+   counted, no fallback) and ``--engine xla``: the class variables'
+   mean marginal and every learned weight within DP_TOL_*; the kernels
+   against the plain versions on the CLI's tables; compile, build and
+   epoch-differenced epoch times of kernel and plain version.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -191,12 +215,17 @@ on its graph, and 7, ``python3 chip_smoke.py lattice`` phases 1, 2 (the
 lattice) and 6, ``python3 chip_smoke.py checkpoint`` phases 1 and 11,
 with a kernels line of kernels #1 and #2 from phase 11's own runs,
 ``python3 chip_smoke.py sharded`` phases 1 and 12, with an empty
-kernels line (no kernel runs on the mesh engine's path).
+kernels line (no kernel runs on the mesh engine's path), ``python3
+chip_smoke.py factors`` phases 1 and 13, with a kernels line of kernels
+#1 and #2 on phase 13's DP graph, and ``python3 chip_smoke.py
+dpspread`` phase 1 and the spread over three seeds that DP_TOL_* are
+three times of (empty kernels line).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import resource
@@ -776,9 +805,11 @@ def compare_learn(torch, eng, lp, seed=7, burn=2, epochs=5, stepsize=0.05,
     return equal, total, err, wk
 
 
-def check_learn_equal(torch, name, eng, lp, **kw):
-    """compare_learn(), logged; fails on any unequal step or when the
-    weights did not move. Returns the max abs difference (0)."""
+def check_learn_equal(torch, name, eng, lp, moves=True, **kw):
+    """compare_learn(), logged; fails on any unequal step, or when the
+    weights did not move (``moves``) or did (not ``moves``: a graph of
+    NOOP items alone, which no weight step counts). Returns the max abs
+    difference (0)."""
     eq, tot, err, w = compare_learn(torch, eng, lp, **kw)
     w0 = torch.as_tensor(eng.cg.weight_init, dtype=torch.float32,
                          device=w.device)
@@ -789,8 +820,8 @@ def check_learn_equal(torch, name, eng, lp, **kw):
             tot, err))
     if eq != tot or err != 0:
         fail("learn kernels and plain version disagree on %s" % name)
-    if moved == 0:
-        fail("no weight moved on %s" % name)
+    if (moved == 0) == moves:
+        fail("%s weight moved on %s" % ("no" if moves else "a", name))
     return err
 
 
@@ -3182,6 +3213,617 @@ def phase_sharded(torch, card):
     return rates
 
 
+# ---- phase 13: every factor function through kernels #1 and #2 ----------
+
+FACTOR_KINDS = ("a14", "a13", "hub", "cat")
+# the arities golden.eval_factor reads for these codes; the others take
+# any arity
+FIXED_ARITY = {"DP_GEN_CLASS_PRIOR": 1, "DP_GEN_LF_PRIOR": 1,
+               "DP_GEN_LF_PROPENSITY": 1, "DP_GEN_LF_ACCURACY": 2,
+               "DP_GEN_LF_CLASS_PROPENSITY": 2, "DP_GEN_DEP_FIXING": 3,
+               "DP_GEN_DEP_REINFORCING": 3, "DP_GEN_DEP_EXCLUSIVE": 2,
+               "DP_GEN_DEP_SIMILAR": 2}
+DYADIC = (-1.0, -0.75, -0.5, -0.25, -0.125, 0.125, 0.25, 0.5, 0.75, 1.0)
+HUB_FACTORS = 1100       # items on the hub row: beyond LEARN_ITEM_TILE
+LEARN_ITEM_TILE = 1024   # kItemTile of csrc/itemgrid_learn.cu
+DP_CANDIDATES = 200000   # phase 13 (d): PERF.md's LF cell, 10 LFs
+DP_LFS = 10
+DP_ARGV = ["-l", "20", "-i", "100", "-b", "10"]
+# Three times the spread (max - min) over seeds 0, 1, 2 of the class's
+# mean marginal and of the learned weights (the largest over weights) of
+# DP_ARGV on the DP graph, the larger of the two engines', as `python3
+# chip_smoke.py dpspread` measured it on one H100 80GB HBM3 at 700 W
+DP_TOL_MEAN = 3 * 0.001244
+DP_TOL_WEIGHT = 3 * 0.000259
+
+
+def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
+                 cards=None, dtype1=1 / 3, evidence=0.3):
+    """(weights, variables, factors, fmap) of a random graph whose
+    factors take the codes ``codes`` (names of ``types.FACTORS``) in
+    turn, with 4 dyadic weights (weight 0 fixed) and featureValue 1.
+    ``kind``: 'a14' boolean, arity 1 to 4 (30 variables, 40 factors);
+    'a13' boolean, arity 13 (30, 20); 'hub' boolean, arity 1 to 2, with
+    variable 0, evidence, in each of HUB_FACTORS factors (40
+    variables); 'cat' cardinality 3 to 8 (``cards`` (lo, hi) in its
+    place), arity 1 to 4.
+    Codes of FIXED_ARITY take theirs. A share ``dtype1`` of the
+    variables is dataType 1 (an item applies at its slot values only),
+    a share ``evidence`` is evidence. UFO's first argument has a
+    cardinality of at most its arity + 1, so golden reads no position
+    beyond the factor (the port clips there: a deviation ROADMAP
+    lists)."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    n = n_vars or (40 if kind == "hub" else 30)
+    nf = n_factors or {"hub": HUB_FACTORS, "a13": 20}.get(kind, 40)
+    if kind == "cat":
+        lo, hi = cards or (3, 8)
+        card = rng.integers(lo, hi + 1, n)
+    else:
+        card = np.full(n, 2)
+    v = T.new_variables(n)
+    v["cardinality"] = card
+    v["dataType"] = rng.random(n) < dtype1
+    v["isEvidence"] = rng.random(n) < evidence
+    v["isEvidence"][0] |= kind == "hub"    # its items carry the gradient
+    v["initialValue"] = rng.integers(0, 1 << 30, n) % card
+    w = T.new_weights(4)
+    w["initialValue"] = rng.choice(DYADIC, 4)
+    w["isFixed"] = (True, False, False, False)
+    arities, vids = [], []
+    for i in range(nf):
+        name = codes[i % len(codes)]
+        a = FIXED_ARITY.get(name) or {
+            "a13": 13, "hub": int(rng.integers(1, 3))}.get(
+                kind, int(rng.integers(1, 5)))
+        if name == "UFO":
+            a = max(a, int(card.min()) - 1)
+        vid = rng.integers(0, n, a)
+        if name == "UFO":
+            vid[0] = rng.choice(np.flatnonzero(card <= a + 1))
+        if kind == "hub":
+            vid[rng.integers(a)] = 0
+        arities.append(a)
+        vids.append(vid)
+    f = T.new_factors(nf)
+    f["factorFunction"] = [T.FACTORS[codes[i % len(codes)]]
+                           for i in range(nf)]
+    f["weightId"] = rng.integers(0, 4, nf)
+    f["featureValue"] = 1.0
+    f["arity"] = arities
+    f["ftv_offset"] = np.concatenate(([0], np.cumsum(arities)[:-1]))
+    fm = T.new_fmap(int(sum(arities)))
+    fm["vid"] = np.concatenate(vids)
+    fm["dense_equal_to"] = rng.integers(0, 1 << 30, len(fm)) % \
+        card[fm["vid"]]
+    return w, v, f, fm
+
+
+def dp_graph(candidates, n_lf, seed):
+    """(weights, variables, factors, fmap) of a data-programming
+    generative model: per candidate a latent boolean class y (query) and
+    n_lf labeling-function outputs (cardinality 3, 2 = abstain,
+    evidence) drawn from per-LF propensities and accuracies; per
+    candidate DP_GEN_CLASS_PRIOR(y) and, for each LF, LF_ACCURACY(y, l),
+    LF_PROPENSITY(l), LF_CLASS_PROPENSITY(y, l) and LF_PRIOR(l); then
+    DEP_FIXING(y, l_a, l_b), DEP_REINFORCING(y, l_a, l_b),
+    DEP_EXCLUSIVE(l_a, l_b) and DEP_SIMILAR(l_a, l_b) on the LF pairs
+    (0, 1), (2, 3), (4, 5), (6, 7) (indices mod n_lf). One weight per
+    (factor kind, LF): accuracies start at 1.0 (which breaks the y ->
+    1 - y symmetry), the rest at dyadic values in [-0.5, 0.5]. Factors
+    are written kind by kind, so that equal arities run together."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    C, L = candidates, n_lf
+    y = rng.integers(0, 2, C)
+    prop = rng.uniform(0.3, 0.9, L)
+    acc = rng.uniform(0.6, 0.9, L)
+    fires = rng.random((C, L)) < prop
+    right = rng.random((C, L)) < acc
+    lab = np.where(fires, np.where(right, y[:, None], 1 - y[:, None]), 2)
+    n = C * (1 + L)
+    v = T.new_variables(n)
+    yv = np.arange(C) * (1 + L)
+    lv = yv[:, None] + 1 + np.arange(L)
+    v["cardinality"] = 3
+    v["cardinality"][yv] = 2
+    v["isEvidence"] = 1
+    v["isEvidence"][yv] = 0
+    v["initialValue"][lv.ravel()] = lab.ravel()
+    pairs = [((2 * k) % L, (2 * k + 1) % L) for k in range(4)]
+    nw = 1 + 4 * L + 4
+    w = T.new_weights(nw)
+    w["initialValue"] = rng.choice(DYADIC, nw) / 2
+    w["initialValue"][1:1 + L] = 1.0
+    kinds = [("DP_GEN_CLASS_PRIOR", [yv], np.zeros(1, int))]
+    for k, name in enumerate(("DP_GEN_LF_ACCURACY", "DP_GEN_LF_PROPENSITY",
+                              "DP_GEN_LF_CLASS_PROPENSITY",
+                              "DP_GEN_LF_PRIOR")):
+        two = name in ("DP_GEN_LF_ACCURACY", "DP_GEN_LF_CLASS_PROPENSITY")
+        args = [np.repeat(yv, L), lv.ravel()] if two else [lv.ravel()]
+        kinds.append((name, args, np.tile(1 + k * L + np.arange(L), C)))
+    for k, (name, (a, b)) in enumerate(zip(
+            ("DP_GEN_DEP_FIXING", "DP_GEN_DEP_REINFORCING",
+             "DP_GEN_DEP_EXCLUSIVE", "DP_GEN_DEP_SIMILAR"), pairs)):
+        args = [lv[:, a], lv[:, b]]
+        if FIXED_ARITY[name] == 3:
+            args = [yv] + args
+        kinds.append((name, args, np.full(C, 1 + 4 * L + k)))
+    nf = sum(len(a[0]) for _, a, _ in kinds)
+    f = T.new_factors(nf)
+    fm = T.new_fmap(sum(len(a[0]) * len(a) for _, a, _ in kinds))
+    i = e = 0
+    for name, args, wid in kinds:
+        m, a = len(args[0]), len(args)
+        f["factorFunction"][i:i + m] = T.FACTORS[name]
+        f["weightId"][i:i + m] = np.broadcast_to(wid, (m,))
+        f["arity"][i:i + m] = a
+        f["ftv_offset"][i:i + m] = e + a * np.arange(m)
+        fm["vid"][e:e + a * m] = np.stack(args, axis=1).ravel()
+        i, e = i + m, e + a * m
+    f["featureValue"] = 1.0
+    return w, v, f, fm
+
+
+def factor_fixtures_of(name):
+    """Phase 13 (a)'s graphs of factor code ``name`` alone: (graph name,
+    (name,), (w, v, f, fm)) in every kind that takes it (a13 only where
+    the arity is free), each from its own seed."""
+    from numbskull_tpu_torch import types as T
+    i = list(T.FACTORS).index(name)
+    return [("%s/%s" % (name, kind), (name,),
+             random_graph((name,), kind, 1000 + 10 * i + j))
+            for j, kind in enumerate(FACTOR_KINDS)
+            if not (kind == "a13" and name in FIXED_ARITY)]
+
+
+def factor_fixtures():
+    """Phase 13 (a)'s graphs: every code alone (factor_fixtures_of),
+    then the three mixed graphs: every code on boolean variables (arity
+    as the code takes it, 1 to 4 otherwise), every code at cardinality
+    3 to 8, and the DP model with card-3 LF variables."""
+    from numbskull_tpu_torch import types as T
+    out = [g for name in T.FACTORS for g in factor_fixtures_of(name)]
+    codes = tuple(T.FACTORS)
+    out.append(("mixed/bool", codes,
+                random_graph(codes, "a14", 7, n_vars=60, n_factors=150)))
+    out.append(("mixed/cat", codes,
+                random_graph(codes, "cat", 8, n_vars=60, n_factors=150)))
+    dp = tuple(n for n in codes if n.startswith("DP_"))
+    out.append(("mixed/dp", dp, dp_graph(12, DP_LFS, 9)))
+    return out
+
+
+def exact_fixtures():
+    """Phase 13 (c)'s graphs, small enough to enumerate, every variable
+    dataType 0 and free: boolean (10 variables, every code), categorical
+    (5 variables of cardinality 3, every code) and the DP model (2
+    candidates, 3 LFs; 2,916 states) at half its weights, so that its
+    chain mixes within 20,000 epochs."""
+    from numbskull_tpu_torch import types as T
+    codes = tuple(T.FACTORS)
+    dp = dp_graph(2, 3, 23)
+    dp[0]["initialValue"] /= 2
+    return [("exact/bool", random_graph(codes, "a14", 21, n_vars=10,
+                                        n_factors=14, dtype1=0)),
+            ("exact/cat", random_graph(codes, "cat", 22, n_vars=5,
+                                       n_factors=10, cards=(3, 3),
+                                       dtype1=0)),
+            ("exact/dp", dp)]
+
+
+def _step_codes(t, ci):
+    """The factor codes of step ``ci``'s items in tables ``t``."""
+    import numpy as np
+    return np.unique(np.asarray(t.plans[ci].it_ftype)[
+        t.item_index[ci]]).tolist()
+
+
+def sweep_paths(t):
+    """{factor code: {sweep path}} of sweep tables ``t``: per step with
+    rows, ('item', lanes, fast) at kmax 2, ('row', KMAX template)
+    above (the choice of nsx_itemgrid_sweep_color)."""
+    out = {}
+    for ci in range(t.n_steps):
+        if t.n_rows[ci] == 0:
+            continue
+        if t.kmax <= 2:
+            _, lanes, fast = t.item_shape[ci]
+            path = ("item", lanes, bool(fast))
+        else:
+            path = ("row", next(k for k in (8, 32, 128) if t.kmax <= k))
+        for c in _step_codes(t, ci):
+            out.setdefault(c, set()).add(path)
+    return out
+
+
+def learn_paths(lt):
+    """{factor code: {learn step template}} of learn tables ``lt``: the
+    choice of nsx_learn_step (learn_item_kernel at kmax 2 when the
+    step's longest piece fits LEARN_ITEM_TILE, else
+    learn_step_kernel<KMAX>)."""
+    t = lt.sweep
+    out = {}
+    for ci in range(t.n_steps):
+        if t.n_rows[ci] == 0:
+            continue
+        if t.kmax <= 2 and lt.smem_items[ci] <= LEARN_ITEM_TILE:
+            path = "learn_item"
+        else:
+            path = "learn_step<%d>" % next(k for k in (2, 8, 32, 128)
+                                           if t.kmax <= k)
+        for c in _step_codes(t, ci):
+            out.setdefault(c, set()).add(path)
+    return out
+
+
+def required_paths(name):
+    """(sweep, learn) requirements of factor code ``name``: labels and
+    tests on a sweep path of sweep_paths, and the learn templates. Every
+    code runs the row kernel (KMAX 8) and all three learn templates; in
+    the item kernel, a code of free arity runs 1 lane, 2 to 4 and 8 or
+    more lanes an item (FAST for ops/itemgrid.FAST_TYPES, and not FAST
+    in the mixed graph), a code of fixed arity the lanes its arity gives."""
+    from numbskull_tpu_torch import types as T
+    from numbskull_tpu_torch.ops.itemgrid import FAST_TYPES, sweep_lanes
+    need = [("row<8>", lambda p: p == ("row", 8))]
+    fast = T.FACTORS[name] in FAST_TYPES
+    if name in FIXED_ARITY:
+        lanes = sweep_lanes(1, FIXED_ARITY[name])
+        need.append(("item L%d" % lanes,
+                     lambda p: p[0] == "item" and p[1] == lanes))
+    else:
+        for label, ok in (("L1", lambda n: n == 1),
+                          ("L2-4", lambda n: 2 <= n <= 4),
+                          ("L8+", lambda n: n >= 8)):
+            need.append(("item %s%s" % (label, " FAST" if fast else ""),
+                         lambda p, ok=ok: p[0] == "item" and ok(p[1]) and
+                         p[2] == fast))
+        if fast:
+            need.append(("item not FAST",
+                         lambda p: p[0] == "item" and not p[2]))
+    return need, ("learn_item", "learn_step<2>", "learn_step<8>")
+
+
+def _potentials_vs_golden(torch, cg, model, seed):
+    """Largest |ops/gibbs.color_potentials - golden.potential| / max(1,
+    |golden.potential|) over every (variable, value below its
+    cardinality) at a random state, on the card: a float32 sum against
+    a float64 one (a hub row's 1,100 RATIO terms come to about 65, and
+    their float32 sum is 9e-5 off)."""
+    import numpy as np
+
+    from numbskull_tpu_torch import golden
+    from numbskull_tpu_torch.ops.gibbs import color_potentials, plan_tensors
+    from numbskull_tpu_torch.ops.itemgrid import present_types_of
+    w, v, f, fm = model
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 30, len(v)) % v["cardinality"]
+    wv = w["initialValue"].astype(np.float32)
+    xt = torch.as_tensor(x.astype(np.int32), device=DEVICE)
+    wt = torch.as_tensor(wv, device=DEVICE)
+    worst = 0.0
+    for p in cg.plans:
+        pot = color_potentials(plan_tensors(p, DEVICE), p.kmax,
+                               present_types_of(p.it_ftype), xt,
+                               wt).cpu().numpy()
+        for r, vid in enumerate(p.cv_vid[p.cv_valid]):
+            for k in range(int(v["cardinality"][vid])):
+                want = golden.potential(v, f, fm, wv, int(vid), k, x)
+                worst = max(worst, abs(float(pot[r, k]) - want) /
+                            max(1.0, abs(want)))
+    return worst
+
+
+FACTOR_LPS = (("L2", dict(regularization=2, reg_param=0.01)),
+              ("L1 non-evidence", dict(regularization=1, reg_param=0.01,
+                                       truncation=2,
+                                       learn_non_evidence=True)),
+              ("sum", dict(regularization=2, reg_param=0.01,
+                           grad_agg="sum")))
+
+
+def _phase13_compare(torch, fixtures, swept, learned):
+    """Phase 13 (a) and (b) on ``fixtures`` (factor_fixtures), 1
+    burn-in and 2 epochs a comparison; fills ``swept`` and ``learned``
+    ({code: paths}); returns (largest kernel-vs-plain difference,
+    largest relative |plain - golden| potential, seconds of (a), of its
+    learning, of (b))."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    worst = gworst = 0.0
+    t_a = t_b = t_l = 0.0
+    by_kind = {}
+    for gi, (name, codes, model) in enumerate(fixtures):
+        t0 = time.perf_counter()
+        w, v, f, fm = model
+        cg = compile_graph(w, v, f, fm)
+        mixed = name.startswith("mixed/")
+        scheds = _every_map_and_draw(pig.default_schedule(cg))
+        if mixed:
+            scheds = [s for s in scheds if s[0] in GROUP_SCHEDULES]
+        eng = pig.ItemGridEngine(cg, sample_evidence=not mixed,
+                                 device=DEVICE)
+        tables = eng.tables
+        for label, sched in scheds:
+            # the same tables under another map and draw on every step
+            eng.tables = dataclasses.replace(
+                tables, map_codes=[pig.MAPS.index(m) for m in sched.maps],
+                draw_codes=[pig.DRAWS.index(d) for d in sched.draws])
+            worst = max(worst, check_equal(torch, name, label, eng, seed=gi,
+                                           burn=1, epochs=2))
+            for c, ps in sweep_paths(eng.tables).items():
+                swept.setdefault(c, set()).update(ps)
+        eng = pig.ItemGridEngine(cg, device=DEVICE)
+        kind = name.split("/")[0 if mixed else 1]
+        # L2 alone on the hub and a13 graphs, whose plain versions take
+        # the longest (a 1,100-item row, 20 colors); the settings differ
+        # in the weight update, which no graph kind changes
+        lps = FACTOR_LPS[:1] if kind in ("hub", "a13") else FACTOR_LPS
+        t_l -= time.perf_counter()
+        for label, lpk in lps:
+            worst = max(worst, check_learn_equal(
+                torch, "%s %s" % (name, label), eng, LearnParams(**lpk),
+                moves=codes != ("NOOP",), seed=gi, burn=1, epochs=2))
+        for c, ps in learn_paths(eng.learn_tables()).items():
+            learned.setdefault(c, set()).update(ps)
+        t1 = time.perf_counter()
+        t_l += t1
+        err = _potentials_vs_golden(torch, cg, model, gi)
+        t_b += time.perf_counter() - t1
+        t_a += t1 - t0
+        by_kind[kind] = by_kind.get(kind, 0.0) + t1 - t0
+        if not err <= 1e-4:
+            fail("plain potentials off golden.potential by %g (relative "
+                 "above 1) on %s" % (err, name))
+        gworst = max(gworst, err)
+    log("  (a) seconds by graph kind: " + ", ".join(
+        "%s %.1f" % kv for kv in by_kind.items()))
+    return worst, gworst, t_a, t_l, t_b
+
+
+def _phase13_coverage(swept, learned):
+    """Log each code's sweep paths and learn templates; fail unless every
+    code ran every path that takes it (required_paths)."""
+    from numbskull_tpu_torch import types as T
+    for name, code in T.FACTORS.items():
+        ps = swept.get(code, set())
+        ls = learned.get(code, set())
+        log("  %-27s sweep: %s; learn: %s" % (name, ", ".join(
+            "item L%d%s" % (p[1], " FAST" if p[2] else "")
+            if p[0] == "item" else "row<%d>" % p[1] for p in sorted(ps)),
+            ", ".join(sorted(ls))))
+        need, need_l = required_paths(name)
+        missing = [label for label, ok in need if not any(map(ok, ps))]
+        missing += [t for t in need_l if t not in ls]
+        if missing:
+            fail("factor %s did not run %s" % (name, ", ".join(missing)))
+
+
+def _phase13_exact(torch):
+    """Phase 13 (c): the kernel's marginals over 20,000 epochs against
+    golden.exact_marginals; returns the largest difference."""
+    import numpy as np
+
+    from numbskull_tpu_torch import golden
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    epochs, worst = 20000, 0.0
+    for name, (w, v, f, fm) in exact_fixtures():
+        t0 = time.perf_counter()
+        exact = golden.exact_marginals(v, f, fm, w["initialValue"])
+        t1 = time.perf_counter()
+        eng = pig.ItemGridEngine(compile_graph(w, v, f, fm), device=DEVICE)
+        _, counts = eng.run(seed=31, burn=200, epochs=epochs)
+        marg = counts.cpu().numpy().astype(np.float64) / epochs
+        card = v["cardinality"]
+        mask = np.arange(marg.shape[1])[None, :] < card[:, None]
+        err = float(np.abs(marg - exact[:, :marg.shape[1]])[mask].max())
+        log("  %-10s %d variables, %d factors: kernel marginals over %d "
+            "epochs vs exact, max |diff| %.4f (enumeration %.2f s, run "
+            "%.2f s)" % (name, len(v), len(f), epochs, err, t1 - t0,
+                         time.perf_counter() - t1))
+        if not err <= 0.02:
+            fail("kernel marginals off the exact ones by %.4f on %s"
+                 % (err, name))
+        worst = max(worst, err)
+    return worst
+
+
+def _dp_write(work, candidates, seed=5):
+    """The DP graph of phase 13 (d) as DeepDive files under ``work``;
+    returns (directory, variables, factors, build s, write s)."""
+    from numbskull_tpu_torch import dataloading
+    t0 = time.perf_counter()
+    w, v, f, fm = dp_graph(candidates, DP_LFS, seed)
+    t1 = time.perf_counter()
+    gdir = os.path.join(work, "dp")
+    dataloading.write_factor_graph_files(gdir, w, v, f, fm)
+    return gdir, len(v), len(f), t1 - t0, time.perf_counter() - t1
+
+
+def _dp_cli(torch, gdir, work, engine, seed):
+    """The CLI (DP_ARGV) on the DP graph under ``engine`` with the counts
+    set to 0 just before; checks its outputs and returns a dict: the
+    NumbSkull, wall seconds, launch counts, metrics snapshot, the class
+    variables' mean marginal and the learned weights."""
+    import numpy as np
+    out = os.path.join(work, "dp_out_%s_%d" % (engine, seed))
+    ns, wall, counts, snap = _cli_run(torch, [
+        gdir, *DP_ARGV, "--engine", engine, "--seed", str(seed), "-o", out,
+        "--plan_cache", os.path.join(work, "plans")])
+    fg = ns.factorGraphs[0]
+    card = np.asarray(fg.cg.var_card)
+    with open(os.path.join(out, "inference_result.out.text"), "rb") as fh:
+        lines = fh.read().count(b"\n")
+    want = int(np.where(card == 2, 1, card).sum())
+    if lines != want:
+        fail("DP %s: %d marginal lines, expected %d" % (engine, lines, want))
+    weights = np.loadtxt(os.path.join(
+        out, "inference_result.out.weights.text"), ndmin=2)[:, 1]
+    cnt = fg.state.count[torch.as_tensor(np.flatnonzero(card == 2),
+                                         device=fg.state.count.device), 1]
+    mean = float(cnt.double().mean()) / int(DP_ARGV[3])
+    if not (np.isfinite(weights).all() and 0 < mean < 1):
+        fail("DP %s: weights not finite or class mean %.4f" % (engine,
+                                                                mean))
+    return dict(ns=ns, wall=wall, counts=counts, snap=snap, mean=mean,
+                weights=weights)
+
+
+def _dp_timing(r) -> str:
+    tm = r["snap"]["timings"]
+    return ", ".join("%s %.3f" % (k, tm[k]["total_s"]) for k in (
+        "load.files_s", "load.compile_s", "learning.engine_build_s",
+        "learning.sweep_s", "inference.engine_build_s", "inference.sweep_s",
+        "dump.marginals_s") if k in tm)
+
+
+def _phase13_dp(torch, work, card):
+    """Phase 13 (d): the DP graph through the CLI on the kernels
+    (--engine itemgrid; a refusal fails) and on the tensor-op engine
+    (--engine xla), class mean marginal and weights within DP_TOL_*;
+    the kernels held against the plain versions on the CLI's tables;
+    epoch-differenced ms of kernel and plain version. Returns what the
+    kernels line reads."""
+    import numpy as np
+
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams
+    gdir, nv, nf, t_build, t_write = _dp_write(work, DP_CANDIDATES)
+    log("  (d) DP graph: %d candidates x %d LFs, %d variables, %d "
+        "factors; built in %.2f s, written in %.2f s"
+        % (DP_CANDIDATES, DP_LFS, nv, nf, t_build, t_write))
+    k = _dp_cli(torch, gdir, work, "itemgrid", 0)
+    fg = k["ns"].factorGraphs[0]
+    eng = fg.engine(True)
+    if not isinstance(eng, pig.ItemGridEngine) or \
+            k["snap"]["counters"].get("engine.fallbacks"):
+        fail("DP graph: --engine itemgrid did not run on the kernels")
+    lt = eng.learn_tables()
+    n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
+    lrn, inf, burn = (int(DP_ARGV[i]) for i in (1, 3, 5))
+    sweeps, learns, _ = k["counts"]
+    log("  itemgrid: main() %.2f s (%s); %d sweep and %d learn launches, "
+        "%d colors, kmax %d; %s" % (k["wall"], _dp_timing(k), sweeps,
+                                    learns, n_colors, eng.cg.kmax, card))
+    if sweeps != (2 * burn + inf) * n_colors or \
+            learns != lrn * learn_launches_per_epoch(lt):
+        fail("DP graph: launches %d, %d, expected %d, %d"
+             % (sweeps, learns, (2 * burn + inf) * n_colors,
+                lrn * learn_launches_per_epoch(lt)))
+    x = _dp_cli(torch, gdir, work, "xla", 0)
+    if not isinstance(x["ns"].factorGraphs[0].engine(True), GibbsEngine) \
+            or any(x["counts"]):
+        fail("DP graph: --engine xla launched a kernel")
+    log("  xla: main() %.2f s (%s); %s" % (x["wall"], _dp_timing(x), card))
+    d_mean = abs(k["mean"] - x["mean"])
+    d_w = float(np.abs(k["weights"] - x["weights"]).max())
+    log("  class mean marginal itemgrid %.5f, xla %.5f (|diff| %.5f, "
+        "tolerance %.5f); weights max |diff| %.5f (tolerance %.5f), "
+        "itemgrid %s" % (k["mean"], x["mean"], d_mean, DP_TOL_MEAN, d_w,
+                         DP_TOL_WEIGHT, np.array2string(
+                             k["weights"], precision=4)))
+    if not (d_mean <= DP_TOL_MEAN and d_w <= DP_TOL_WEIGHT):
+        fail("DP graph: itemgrid and xla disagree beyond the tolerance")
+    del x
+    lp = LearnParams()
+    err = max(check_equal(torch, "dp (CLI tables)", "own", eng, burn=1,
+                          epochs=1),
+              check_learn_equal(torch, "dp (CLI tables)", eng, lp, burn=1,
+                                epochs=1))
+    rates = {}
+    for which in ("kernel", "plain"):
+        plain = which == "plain"
+        for mode, pts, lpx in (("infer", (2, 6) if plain else (5, 25),
+                                None),
+                               ("learn", (1, 3) if plain else (2, 10), lp)):
+            ups, ms = rate(torch, eng, plain, *pts, lp=lpx)
+            rates[(mode, which)] = ms
+            log("  dp %s %-6s %.4f ms/epoch, %.6g variable updates/s "
+                "(epochs %d..%d); %s" % (mode, which, ms, ups, *pts, card))
+    return dict(sweeps=sweeps, learns=learns, err=err, rates=rates,
+                sweep_cost=sweep_epoch_cost(torch, eng.tables),
+                learn_cost=learn_epoch_cost(torch, lt))
+
+
+def phase_factors(torch, card):
+    """Phase 13; returns what the kernels line reads of (d)."""
+    log("== phase 13: every factor function through the sweep and learn "
+        "kernels; %s" % card)
+    t0 = time.perf_counter()
+    swept, learned = {}, {}
+    fixtures = factor_fixtures()
+    worst, gworst, t_a, t_l, t_b = _phase13_compare(torch, fixtures, swept,
+                                                    learned)
+    log("  (a) kernel == plain on %d graphs, max |diff| %g (%.1f s, "
+        "learning %.1f s of it); (b) plain potentials vs golden max |diff| "
+        "/ max(1, |golden|) %.3g (%.1f s)"
+        % (len(fixtures), worst, t_a, t_l, gworst, t_b))
+    _phase13_coverage(swept, learned)
+    t1 = time.perf_counter()
+    _phase13_exact(torch)
+    log("  (c) took %.1f s" % (time.perf_counter() - t1))
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
+        dp = _phase13_dp(torch, work, card)
+    log("  (d) took %.1f s" % (time.perf_counter() - t1))
+    log("  phase 13 took %.1f s" % (time.perf_counter() - t0))
+    dp["err"] = max(dp["err"], worst)
+    return dp
+
+
+def factors_records(dp):
+    """The `factors` mode's kernels line: kernels #1 and #2 with phase
+    13 (d)'s launches and epoch times on the DP graph."""
+    recs = []
+    for base, launches, mode, cost in (
+            (SWEEP, dp["sweeps"], "infer", dp["sweep_cost"]),
+            (LEARN, dp["learns"], "learn", dp["learn_cost"])):
+        rec = dict(base, launches=launches, max_abs_err=dp["err"],
+                   ms=dp["rates"][(mode, "kernel")],
+                   plain_ms=dp["rates"][(mode, "plain")], library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = bound(*cost)
+        recs.append(rec)
+    return recs
+
+
+def phase_dp_spread(torch, card):
+    """The spread of DP_ARGV's results over seeds 0, 1, 2 on the DP
+    graph, on both engines: the class mean marginal and each learned
+    weight; prints the tolerances (three times the largest spread) that
+    DP_TOL_MEAN and DP_TOL_WEIGHT hold."""
+    import numpy as np
+    log("== DP spread over seeds 0, 1, 2 (%s)" % card)
+    with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
+        gdir = _dp_write(work, DP_CANDIDATES)[0]
+        res = {}
+        for engine in ("itemgrid", "xla"):
+            for seed in (0, 1, 2):
+                r = _dp_cli(torch, gdir, work, engine, seed)
+                res[(engine, seed)] = (r["mean"], r["weights"])
+                log("  %s seed %d: main() %.2f s, class mean %.5f, weights "
+                    "%s" % (engine, seed, r["wall"], r["mean"],
+                            np.array2string(r["weights"], precision=5)))
+    s_mean = max(np.ptp([res[(e, s)][0] for s in range(3)])
+                 for e in ("itemgrid", "xla"))
+    s_w = max(float(np.ptp(np.stack([res[(e, s)][1] for s in range(3)]),
+                           axis=0).max()) for e in ("itemgrid", "xla"))
+    d_mean = max(abs(res[("itemgrid", s)][0] - res[("xla", s)][0])
+                 for s in range(3))
+    d_w = max(float(np.abs(res[("itemgrid", s)][1] -
+                           res[("xla", s)][1]).max()) for s in range(3))
+    log("  spread: class mean %.6f, weights %.6f; tolerances (3x) %.6f, "
+        "%.6f; itemgrid vs xla at one seed: up to %.6f, %.6f"
+        % (s_mean, s_w, 3 * s_mean, 3 * s_w, d_mean, d_w))
+
+
 def finish(torch, card, records):
     log(card)
     print(json.dumps({"kernels": records}))
@@ -3304,6 +3946,13 @@ def main():
         phase_sharded(torch, card)
         finish(torch, card, [])
         return
+    if sys.argv[1:] == ["factors"]:   # phases 1 and 13 only
+        finish(torch, card, factors_records(phase_factors(torch, card)))
+        return
+    if sys.argv[1:] == ["dpspread"]:  # phase 1, then DP_TOL_*'s spread
+        phase_dp_spread(torch, card)
+        finish(torch, card, [])
+        return
     if sys.argv[1:] == ["lattice"]:   # phases 1, 2 (the lattice), 6
         worst_s = phase_stencil_compare(torch)
         launches, lattice = phase_lattice(torch, card)
@@ -3312,6 +3961,9 @@ def main():
     worst = phase_compare(torch)
     worst_l = phase_learn_compare(torch)
     worst_s = phase_stencil_compare(torch)
+    # phase 13 next, while the process holds little: its plain versions
+    # run many small tensor ops, which ran a third slower after phase 12
+    dp = phase_factors(torch, card)
     with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
         launches, ising_ns, err3 = phase_main_path(torch, work)
         learns, coin_ns, err4 = phase_learn_main_path(torch, work)
@@ -3334,6 +3986,9 @@ def main():
         learn_record(torch, learns, max(worst_l, err4, err5_l),
                      rates[("coin400k", "learn")], learn_cost, hbm),
         stencil_record(stencil_launches, worst_s, lattice)]
+    for rec, dp_rec in zip(records, factors_records(dp)):
+        rec["dp"] = {k: dp_rec[k] for k in ("launches", "max_abs_err", "ms",
+                                            "plain_ms", "bound_ms")}
     records += mc_records(mcr) + bsp_records(bspr) + \
         gather_records(gatherr)
     finish(torch, card, records)

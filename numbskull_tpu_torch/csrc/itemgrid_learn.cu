@@ -10,7 +10,9 @@
 // new value - eval at the clamped chain's new value) x featureValue; per
 // weight the gradients and their count sum, and the weight takes one
 // step (mean or sum, L2 shrinkage or L1 truncated gradient, fixed weights
-// skipped). The burn-in of the free chain runs the sweep kernel.
+// skipped). NOOP items carry no gradient and are not counted, as in the
+// TPU kernel (itemgrid_pallas.py:363). The burn-in of the free chain runs
+// the sweep kernel.
 //
 // How: two launches on one stream per (epoch, color).
 //   learn_step_kernel  (learn_item_kernel at KMAX 2, see below)
@@ -386,7 +388,8 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
   float* s_w = reinterpret_cast<float*>(s_e + S);
   float* s_g = s_w + S;
   uint8_t* s_inc = reinterpret_cast<uint8_t*>(s_g + S);
-  uint8_t* s_flag = s_inc + S;  // dense, d1 == 0, d1 == 1, d2 == 0, d2 == 1
+  // dense, d1 == 0, d1 == 1, d2 == 0, d2 == 1, NOOP
+  uint8_t* s_flag = s_inc + S;
   uint8_t* s_row = s_flag + S;
   if (tid < nr) {
     s_ri[tid] = t.row_item[tr0 + tid] - T0;
@@ -420,7 +423,8 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
     s_e[j] = make_float4(e[0], e[1], e[2], e[3]);
     s_w[j] = w;
     s_flag[j] = static_cast<uint8_t>(dense | (d1 == 0) << 1 | (d1 == 1) << 2 |
-                                     (d2 == 0) << 3 | (d2 == 1) << 4);
+                                     (d2 == 0) << 3 | (d2 == 1) << 4 |
+                                     (ftype == -1) << 5);
     s_row[j] = static_cast<uint8_t>(lo);
   }
   __syncthreads();
@@ -470,7 +474,7 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
       oke = static_cast<unsigned>(ev) < 2u &&
             (dense ? ev < card : (ev == d1 || ev == d2));
     }
-    const bool inc = s_lrn[row] && (dense || hit);
+    const bool inc = s_lrn[row] && !(f & 32) && (dense || hit);
     float g = 0.0f;
     if (inc) {
       const float4 e = s_e[j];
@@ -560,7 +564,8 @@ __global__ void __launch_bounds__(kTileRows)
         const int d1 = meta_d1(m), d2 = meta_d2(m);
         const bool hit =
             d1 == e_val || d1 == p_val || d2 == e_val || d2 == p_val;
-        const bool inc = lrn && (meta_dense(m) || hit);
+        const bool inc =
+            lrn && meta_ftype(m) != -1 && (meta_dense(m) || hit);
         s_g[it - P0] = inc ? item_grad(t, p, it, p_val, e_val) : 0.0f;
         s_inc[it - P0] = inc ? 1 : 0;
       }

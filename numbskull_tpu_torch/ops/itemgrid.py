@@ -76,7 +76,8 @@ from numbskull_tpu_torch.ops.factor_eval import present_types_of
 from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
                                           eval_items_at, plan_tensors)
 from numbskull_tpu_torch.types import (EV_EVIDENCE, EV_QUERY, FUNC_AND,
-                                       FUNC_EQUAL, FUNC_ISTRUE, FUNC_OR)
+                                       FUNC_EQUAL, FUNC_ISTRUE, FUNC_NOOP,
+                                       FUNC_OR)
 
 COLOR_MAX = 256      # salt stride is COLOR_MAX + 1: at most 256 colors
 VEC_K_MIN = 9        # kmax >= this draws with `vec`, below with `cdf`
@@ -1209,7 +1210,9 @@ def learn_rows_reference(lt: LearnTables, ci: int, x: torch.Tensor,
     ev_e = eval_items_at(pd, t.present[ci], xe, e_it)
     hit = (pd["it_d1"] == e_it) | (pd["it_d1"] == p_it) | \
         (pd["it_d2"] == e_it) | (pd["it_d2"] == p_it)
-    inc = lrn[row] & (pd["it_dense"] | hit)
+    # NOOP items carry no gradient and are not counted
+    # (itemgrid_pallas.py:363)
+    inc = lrn[row] & (pd["it_ftype"] != FUNC_NOOP) & (pd["it_dense"] | hit)
     grad = torch.where(inc, (ev_p - ev_e) * pd["it_fv"],
                        torch.zeros((), dtype=torch.float32,
                                    device=x.device))

@@ -8,6 +8,10 @@ import os
 
 import torch
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def run_shard(rank, group, cg, run_args, learn_args, lp, out_dir):
     from numbskull_tpu_torch.ops.itemgrid_mc import MultiChipItemGridEngine

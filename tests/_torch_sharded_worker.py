@@ -8,6 +8,10 @@ import time
 import torch
 import torch.distributed as dist
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def run_mesh(rank, group, cg, shape, infer_args, learn_args, lp, out_dir):
     """One (chain, shard) of a ``global_mesh`` on the CPU: inference,

@@ -42,6 +42,10 @@ from test_bsp import _random_graph
 from test_torch_host import coin_fixture
 from test_torch_itemgrid import schedule_from_jax_plan
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def _dyadic(rng, shape, scale=8, span=2.0):
     """Multiples of 1/scale in [-span, span]: every sum of a few of them

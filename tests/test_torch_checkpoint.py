@@ -35,6 +35,10 @@ from test_torch_learn import _coin as jax_coin
 from test_torch_learn import _ising16 as jax_ising16
 from test_torch_learn import learn_schedule_from_jax_plan
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 STATE = ("var_value", "var_value_evid", "weight_value", "count")
 
 

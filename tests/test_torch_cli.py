@@ -24,6 +24,10 @@ from numbskull_tpu_torch.models import (coin_exact_marginal, coin_model,
                                        ising_grid, potts_grid)
 from test_torch_host import coin_fixture
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -326,9 +330,9 @@ def test_port_imports_no_jax():
     learning and inference under engine 'xla' inside a profiler trace,
     run_resilient, device_memory_stats, a sqlite round trip through
     dbsource, a graph the kernels refuse (cardinality 130, on the
-    tensor-op engine), both gathers and an import of every experiment
-    driver: no jax and no numbskull_tpu (the test process has imported
-    both)."""
+    tensor-op engine), both gathers, an import of every experiment
+    driver and golden's potentials: no jax and no numbskull_tpu (the
+    test process has imported both)."""
     code = ("import sys\n"
             "import numbskull_tpu_torch.numbskull as cli\n"
             "import numbskull_tpu_torch.convert\n"
@@ -402,6 +406,9 @@ def test_port_imports_no_jax():
             "'engine_tradeoff', 'profile_itemgrid', 'sweep_rates', "
             "'lattice_rates', 'lattice_tiles', 'gather_rates'):\n"
             "    __import__('numbskull_tpu_torch.experiments.' + name)\n"
+            "from numbskull_tpu_torch import golden\n"
+            "golden.conditional(m[1], m[2], m[3], np.zeros(3), 0, "
+            "m[1]['initialValue'])\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numbskull_tpu' or "
             "m.startswith('numbskull_tpu.')]\n"

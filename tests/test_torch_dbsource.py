@@ -28,6 +28,10 @@ from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams
 from numbskull_tpu_torch.parallel.bsp import BSPEngine, BSPItemGridInference
 from numbskull_tpu_torch.parallel.partition import choose_partition
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def _publish(args, var_keys=None, factor_keys=None, app="coin", path=None):
     w, v, f, fm = args[:4]

@@ -21,6 +21,10 @@ from numbskull_tpu_torch.experiments import (common, degree_sweep,
                                              profile_itemgrid, scaling,
                                              sweep_rates)
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the JAX drivers' columns (their TSV headers, or the fields they print)

@@ -14,6 +14,10 @@ from numbskull_tpu.ops.factor_eval import eval_factors as jax_eval_factors
 from numbskull_tpu_torch import types as T
 from numbskull_tpu_torch.ops.factor_eval import eval_factors, present_types_of
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 BOOL_FUNCS = [T.FUNC_IMPLY_NATURAL, T.FUNC_OR, T.FUNC_AND, T.FUNC_EQUAL,
               T.FUNC_ISTRUE, T.FUNC_LINEAR, T.FUNC_RATIO, T.FUNC_LOGICAL,
               T.FUNC_IMPLY_MLN]

@@ -25,6 +25,10 @@ from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 from numbskull_tpu_torch.ops.itemgrid import EnvelopeError, ItemGridEngine
 from test_torch_host import coin_fixture
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def potts130_dir(path):
     """A 4x4 Potts graph of cardinality 130 (beyond the kernels' 128),

@@ -23,6 +23,10 @@ from jax.experimental.pallas import tpu as pltpu
 from numbskull_tpu_torch.experiments.micro_gather import numpy_want, tpu_data
 from numbskull_tpu_torch.ops import gather as G
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

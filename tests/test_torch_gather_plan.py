@@ -20,6 +20,10 @@ from numbskull_tpu_torch.experiments import micro_gather as mg
 from numbskull_tpu_torch.experiments import micro_gather2 as mg2
 from numbskull_tpu_torch.ops import gather as G
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 RB = 1024
 
 

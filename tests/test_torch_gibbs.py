@@ -25,6 +25,10 @@ from numbskull_tpu_torch.models import (coin_exact_marginal, coin_model,
 from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams
 from numbskull_tpu_torch.ops.sample import draw, make_generator
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def test_draw_matches_softmax():
     """Frequencies of 40,000 draws per row type within 0.01 of the

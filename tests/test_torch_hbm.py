@@ -34,6 +34,10 @@ from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 from test_torch_itemgrid import schedule_from_jax_plan
 from test_torch_learn import learn_schedule_from_jax_plan
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 N, M = 160, 512        # 81,920 variables: above the HBM engine's floor
 
 

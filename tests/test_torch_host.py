@@ -17,6 +17,10 @@ from numbskull_tpu_torch.compile import compile_graph
 from numbskull_tpu_torch.convert import (compiled_graph_from_reference,
                                          sampler_state_from_reference)
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def coin_fixture(directory: str) -> str:
     """The reference's 18-variable coin fixture (the spec at

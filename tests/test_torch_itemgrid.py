@@ -29,6 +29,10 @@ from numbskull_tpu_torch.compile import compile_graph as port_compile_graph
 from numbskull_tpu_torch.ops import gibbs as port_gibbs
 from numbskull_tpu_torch.ops import itemgrid as pig
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def schedule_from_jax_plan(cg, plan) -> pig.Schedule:
     """The JAX kernel's sweep as a port Schedule: kernel colors mapped to

@@ -32,6 +32,10 @@ from numbskull_tpu_torch.ops import itemgrid as pig
 from numbskull_tpu_torch.ops.gibbs import LearnParams
 from test_torch_itemgrid import schedule_from_jax_plan
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def learn_schedule_from_jax_plan(cg, plan) -> pig.Schedule:
     """The JAX learn kernel's sweep as a port Schedule: the colors and

@@ -41,6 +41,10 @@ from numbskull_tpu_torch.parallel import multihost
 from test_torch_itemgrid import schedule_from_jax_plan
 from test_torch_learn import learn_schedule_from_jax_plan
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _sync_cpu_dispatch():

@@ -23,6 +23,10 @@ from numbskull_tpu_torch.ops.gibbs import LearnParams
 from numbskull_tpu_torch.parallel import make_mesh, multihost
 from numbskull_tpu_torch.parallel.sharded import ShardedGibbsEngine
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -26,6 +26,10 @@ from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 from numbskull_tpu_torch.resilience import (FaultInjector, StallError,
                                             call_with_timeout, run_resilient)
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def _engine(copies=3):
     w, v, f, fm, dm, _ = coin_model(

@@ -40,6 +40,10 @@ from numbskull_tpu_torch.parallel import make_mesh
 from numbskull_tpu_torch.parallel.sharded import (ShardedGibbsEngine,
                                                   chain_seed, shard_items)
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

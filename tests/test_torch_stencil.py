@@ -32,6 +32,10 @@ from numbskull_tpu_torch.ops import itemgrid as pig
 from numbskull_tpu_torch.ops import stencil_kernel as sk
 from numbskull_tpu_torch.ops.stencil import GridGibbsEngine
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def _dpot_values(w, b):
     """Every dpot a cell can take: fma(2w, k, 2b) for k = 2s - deg."""

@@ -32,6 +32,10 @@ from numbskull_tpu_torch.observability import metrics
 from numbskull_tpu_torch.ops import itemgrid as pig
 from numbskull_tpu_torch.ops.gibbs import GibbsEngine
 
+from _torch_threads import cap_threads
+
+cap_threads()
+
 
 def _cg(model, **kw):
     w, v, f, fm, dm, _ = model
