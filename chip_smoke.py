@@ -37,6 +37,15 @@ full run takes phase 13 right after phase 2):
    bit-equal. Then an LF graph and a coin graph with non-dyadic
    featureValues each learn twice through the kernels: the two runs must
    agree bit for bit, and with the plain version.
+   Categorical edges (``phase_cat_edges``; the categorical kernels at
+   KMAX 8, 32 and 128): stars of 127, 128, 129 and 300 leaves at
+   cardinality 8, 32 and 128 (steps of 1 and of that many rows, the
+   centre's row longer than a chunk, its items sparse at 300) under
+   every map and draw, and learning on them; the has_ext forms on the
+   129-leaf stars; 2 shards (the `send` packs) of Potts 48x48 at card 20
+   and 128, inference and learning; Potts 16x16 compiled with
+   max_colors=1 (a conflicting step). All bit-equal to the plain
+   versions.
    Lattice: ``grid_gibbs`` (kernel #8) against ``grid_gibbs_reference``
    from one lattice, x and count bit-equal, on odd and even sides, 1 x m
    and n x 1, 70000 rows or columns, weight 0.4 and -30, a bias,
@@ -176,11 +185,12 @@ full run takes phase 13 right after phase 2):
    with dyadic weights (``random_graph``, ``dp_graph``): each of the 25
    codes alone, boolean at arity 1 to 4, at arity 13 (the 8-lane item
    path; codes of free arity), with one row of 1,100 items (1 lane,
-   the learn step kernel at KMAX 2) and at cardinality 3 to 8 (the row
-   kernel), each under every map x draw; then every code mixed on
+   the learn step kernel at KMAX 2) and at cardinality 3 to 8, 3 to 32
+   and 3 to 128 (the categorical kernels at KMAX 8, 32, 128), each under
+   every map x draw; then every code mixed on
    boolean and on categorical variables, and the DP model, under
    ``GROUP_SCHEDULES``; each also learning under L2 and, but for the
-   hub and a13 graphs, L1 with learn_non_evidence and
+   hub, a13, cat32 and cat128 graphs, L1 with learn_non_evidence and
    ``grad_agg="sum"``: every draw, count and
    weight equal to the plain version, each code's sweep paths (item
    lanes and FAST, row template) and learn templates logged, and a code
@@ -194,7 +204,10 @@ full run takes phase 13 right after phase 2):
    counted, no fallback) and ``--engine xla``: the class variables'
    mean marginal and every learned weight within DP_TOL_*; the kernels
    against the plain versions on the CLI's tables; compile, build and
-   epoch-differenced epoch times of kernel and plain version.
+   epoch-differenced epoch times of kernel and plain version; (e) Potts
+   256x256 at cardinality 128 with 30 % evidence through
+   ``ItemGridEngine.run`` and ``.learn`` (launches counted), kernels
+   against plain versions, epoch times of both.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -203,7 +216,9 @@ part's tables of the 1M Ising; the gathers: per call at shape A and at
 the span-8 shape), the bound from this run's shapes at the H100's
 3.35 TB/s and 67 TFLOP/s float32 (the lattice's per pipe: int32 at 64
 lanes per SM and clock), and under ``hbm`` the 33.5 M path that
-kernels #6 and #7 of the TPU package served); the last line is
+kernels #6 and #7 of the TPU package served; #1 and #2 also carry
+phase 13's DP graph under ``dp`` and its card-128 Potts grid under
+``potts128``: the categorical kernels); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is visible or the port's package is not beside this
 script. ``python3 chip_smoke.py mc`` runs phases 1 and 8 only,
@@ -217,9 +232,11 @@ with a kernels line of kernels #1 and #2 from phase 11's own runs,
 ``python3 chip_smoke.py sharded`` phases 1 and 12, with an empty
 kernels line (no kernel runs on the mesh engine's path), ``python3
 chip_smoke.py factors`` phases 1 and 13, with a kernels line of kernels
-#1 and #2 on phase 13's DP graph, and ``python3 chip_smoke.py
-dpspread`` phase 1 and the spread over three seeds that DP_TOL_* are
-three times of (empty kernels line).
+#1 and #2 on phase 13's DP graph (and its Potts grid under
+``potts128``), ``python3 chip_smoke.py categorical`` phases 1, 2's
+categorical edges and 13, with the same line, and ``python3
+chip_smoke.py dpspread`` phase 1 and the spread over three seeds that
+DP_TOL_* are three times of (empty kernels line).
 """
 
 from __future__ import annotations
@@ -311,13 +328,21 @@ LATTICE_RUN = (9, 20)    # phase 2's (burn, epochs) at the LATTICES sizes
 HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
 # the learn step kernels' and the sweep kernels' names
 # (csrc/itemgrid_learn.cu, csrc/itemgrid_sweep.cu), in a trace
-LEARN_STEP_KERNELS = ("learn_step_kernel", "learn_item_kernel")
-SWEEP_KERNELS = ("sweep_item_kernel", "sweep_color_kernel")
+LEARN_STEP_KERNELS = ("learn_step_kernel", "learn_item_kernel",
+                      "learn_cat_kernel")
+SWEEP_KERNELS = ("sweep_item_kernel", "sweep_cat_kernel")
 # the sweep kernels as nsx_itemgrid_sweep_attrs numbers them
 SWEEP_ATTRS = tuple("sweep_item_kernel<%d, %s>" % (lanes, fast)
                     for fast in ("false", "true")
                     for lanes in (1, 2, 4, 8, 16, 32)) + tuple(
-    "sweep_color_kernel<%d>" % k for k in (8, 32, 128))
+    "sweep_cat_kernel<%d>" % k for k in (8, 32, 128))
+# the learn kernels as nsx_learn_attrs numbers them
+LEARN_ATTRS = ("learn_item_kernel", "learn_step_kernel") + tuple(
+    "learn_cat_kernel<%d>" % k for k in (8, 32, 128)) + (
+    "learn_sum_kernel", "learn_apply_kernel")
+# learn_item_kernel spills at its 64-register cap (__launch_bounds__
+# (kTileRows, 8)): printed, not failed (PERF.md)
+KNOWN_SPILLS = ("learn_item_kernel",)
 
 
 def fail(msg: str):
@@ -405,28 +430,57 @@ def phase_device(torch):
                         "registers" in line or "spill" in line:
                     log("    ptxas: " + line.strip())
     log("  " + sweep_resources())
+    log("  " + learn_resources())
     for n in LATTICES:
         plan = stencil_kernel.lattice_plan(n, n, 250)
         log("  lattice %dx%d plan %s: block %s, %d B dynamic shared memory"
             % (n, n, plan, plan.block, plan.shared_bytes))
 
 
+def _kernel_attrs(fn, names) -> list:
+    """(name, registers, local bytes a thread) of kernels ``names`` as
+    the loaded module reports them (cudaFuncGetAttributes through
+    ``fn(which, &regs, &local)``); a categorical kernel with local
+    memory (a spill or a local array) fails the run."""
+    out = []
+    for which, name in enumerate(names):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = fn(which, ctypes.byref(regs), ctypes.byref(local))
+        if rc != 0:
+            fail("cudaFuncGetAttributes of %s: CUDA error %d" % (name, rc))
+        if "_cat_kernel" in name and local.value:
+            fail("%s uses %d B of local memory a thread (a spill or a "
+                 "local array)" % (name, local.value))
+        out.append((name, regs.value, local.value))
+    return out
+
+
+def _attrs_line(label, rows) -> str:
+    return label + ": " + "; ".join(
+        "%s %d registers, %d B local%s" % (n, r, lb, " (known spill)"
+                                          if n in KNOWN_SPILLS and lb
+                                          else "")
+        for n, r, lb in rows)
+
+
 def sweep_resources() -> str:
     """The sweep kernels' registers and local memory per thread (spills
     and local arrays) as the loaded module reports them
-    (cudaFuncGetAttributes)."""
+    (cudaFuncGetAttributes); local memory in a categorical kernel
+    fails."""
     from numbskull_tpu_torch.ops import itemgrid
-    lib = itemgrid._kernel_lib()
-    out = []
-    for which, name in enumerate(SWEEP_ATTRS):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = lib.nsx_itemgrid_sweep_attrs(which, ctypes.byref(regs),
-                                          ctypes.byref(local))
-        if rc != 0:
-            fail("cudaFuncGetAttributes of %s: CUDA error %d" % (name, rc))
-        out.append("%s %d registers, %d B local" % (name, regs.value,
-                                                    local.value))
-    return "sweep kernels: " + "; ".join(out)
+    return _attrs_line("sweep kernels", _kernel_attrs(
+        itemgrid._kernel_lib().nsx_itemgrid_sweep_attrs, SWEEP_ATTRS))
+
+
+def learn_resources() -> str:
+    """The same for the learn kernels: local memory in a categorical
+    learn kernel fails; learn_item_kernel's spill (KNOWN_SPILLS) is
+    printed."""
+    from numbskull_tpu_torch.ops import itemgrid
+    return _attrs_line("learn kernels", _kernel_attrs(
+        itemgrid._kernel_lib("itemgrid_learn").nsx_learn_attrs,
+        LEARN_ATTRS))
 
 
 def log_sweep(label, by_kernel):
@@ -652,6 +706,134 @@ def phase_compare(torch):
                                       want_m[1]))
     if max(abs(got[0] - want_m[0]), abs(got[1] - want_m[1])) > 0.02:
         fail("coin marginals off the exact joint by more than 0.02")
+    return worst
+
+
+CAT_STARS = (127, 128, 129, 300)   # leaves of the categorical edge stars
+CAT_STAR_CODES = ("EQUAL", "AND_CAT", "IMPLY_NATURAL_CAT", "LINEAR",
+                  "DP_GEN_DEP_SIMILAR", "EQUAL_CAT_CONST")
+
+
+def _cat_star(card, leaves, seed):
+    """(weights, variables, factors, fmap) of a star at cardinality
+    ``card``: variable 0 in one factor of arity 2 with each leaf, codes
+    CAT_STAR_CODES in turn, 4 dyadic weights (one fixed), 30 %
+    evidence; the centre is dataType 1 (its items sparse: d1, d2) when
+    ``leaves`` is 300, a third of the leaves are. Two steps: the centre
+    alone (a row of ``leaves`` items, longer than a chunk at KMAX 32 and
+    128, and at 129 and 300 at KMAX 8) and ``leaves`` one-item rows."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    n = leaves + 1
+    v = T.new_variables(n)
+    v["cardinality"] = card
+    v["dataType"] = rng.random(n) < 1 / 3
+    v["dataType"][0] = leaves == 300
+    v["isEvidence"] = rng.random(n) < 0.3
+    v["initialValue"] = rng.integers(0, card, n)
+    w = T.new_weights(4)
+    w["initialValue"] = rng.choice(DYADIC, 4)
+    w["isFixed"] = (True, False, False, False)
+    f = T.new_factors(leaves)
+    f["factorFunction"] = [T.FACTORS[CAT_STAR_CODES[i % len(CAT_STAR_CODES)]]
+                           for i in range(leaves)]
+    f["weightId"] = rng.integers(0, 4, leaves)
+    f["featureValue"] = 1.0
+    f["arity"] = 2
+    f["ftv_offset"] = 2 * np.arange(leaves)
+    fm = T.new_fmap(2 * leaves)
+    fm["vid"][0::2] = 0
+    fm["vid"][1::2] = np.arange(1, n)
+    fm["dense_equal_to"] = rng.integers(0, card, 2 * leaves)
+    return w, v, f, fm
+
+
+def phase_cat_edges(torch):
+    """Phase 2, the categorical kernels' edges (sweep_cat_kernel and
+    learn_cat_kernel at KMAX 8, 32 and 128, cardinality 8, 32, 128), each
+    against its plain version bit for bit: the stars of CAT_STARS (steps
+    of 1, 127, 128, 129 and 300 rows, the centre's row longer than a
+    chunk) under every map and draw, and learning (L2) on them; the
+    has_ext forms (ext tables of dyadic values) on the star of 129;
+    graph-sharded runs at 2 shards (the `send` packs) and learning on
+    Potts 48x48 with 30 % evidence; and a conflicting step (Potts 16x16
+    compiled with max_colors=1). Returns the largest difference."""
+    import numpy as np
+
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import potts_grid
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops import itemgrid_mc as mc
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    log("== phase 2: the categorical kernels' edges (bit-equal)")
+    t0 = time.perf_counter()
+    worst = 0.0
+    l2 = LearnParams(regularization=2, reg_param=0.01)
+    for card in (8, 32, 128):
+        for leaves in CAT_STARS:
+            cg = compile_graph(*_cat_star(card, leaves, card + leaves))
+            tables = None
+            for label, sched in _every_map_and_draw(pig.default_schedule(cg)):
+                eng = pig.ItemGridEngine(cg, device=DEVICE, schedule=sched)
+                tables = tables or eng.tables
+                worst = max(worst, check_equal(
+                    torch, "star%d_card%d" % (leaves, card), label, eng,
+                    burn=1, epochs=2))
+            if sorted(tables.n_rows) != [1, leaves]:
+                fail("star %d: steps of %s rows" % (leaves, tables.n_rows))
+            eng = pig.ItemGridEngine(cg, device=DEVICE)
+            worst = max(worst, check_learn_equal(
+                torch, "star%d_card%d" % (leaves, card), eng, l2, burn=1,
+                epochs=2))
+            if leaves != 129:
+                continue
+            rng = np.random.default_rng(card)
+            ext = [torch.as_tensor(rng.choice(DYADIC, (cg.n_vars, card + 3)),
+                                   dtype=torch.float32, device=DEVICE)
+                   for _ in range(2)]
+            for what, fn in (
+                    ("run", lambda plain: eng.run(3, 1, 3, ext_pot=ext[0],
+                                                  plain=plain)),
+                    ("learn", lambda plain: eng.learn(
+                        3, 1, 2, 0.05, 0.98, l2, ext_pot=ext[0],
+                        ext_pot_evid=ext[1], plain=plain))):
+                got, want = fn(False), fn(True)
+                same = all(_bits_equal(torch, a, b)
+                           for a, b in zip(got, want))
+                log("  star129_card%d ext %-5s kernel == plain: %s"
+                    % (card, what, same))
+                if not same:
+                    fail("has_ext %s on the card-%d star disagrees with "
+                         "the plain version" % (what, card))
+    for card in (20, 128):
+        w, v, f, fm, dm, _ = _with_evidence(potts_grid(
+            48, 48, card=card, weight=0.25, fixed=False), 0.3, card)
+        cg = compile_graph(w, v, f, fm, domain_mask=dm)
+        eng = mc.MultiChipItemGridEngine(cg, n_shards=2, device=DEVICE)
+        for what, fn in (("run", lambda plain: eng.run(5, 1, 3,
+                                                       plain=plain)),
+                         ("learn", lambda plain: eng.learn(
+                             9, 1, 2, 0.05, 0.98, l2, plain=plain))):
+            got, want = fn(False), fn(True)
+            same = all(_bits_equal(torch, a, b) for a, b in zip(got, want))
+            log("  potts48_card%d 2 shards (send) %-5s kernel == plain: %s"
+                % (card, what, same))
+            if not same:
+                fail("sharded %s on the card-%d Potts grid disagrees with "
+                     "the plain version" % (what, card))
+        w, v, f, fm, dm, _ = _with_evidence(potts_grid(
+            16, 16, card=card, weight=0.25, fixed=False), 0.3, card + 1)
+        eng = pig.ItemGridEngine(compile_graph(w, v, f, fm, domain_mask=dm,
+                                               max_colors=1), device=DEVICE)
+        if eng.tables.conflict != [True]:
+            fail("max_colors=1 Potts: the one color is not conflicting")
+        worst = max(worst, check_equal(torch, "potts16_card%d_max_colors1"
+                                       % card, "own", eng, burn=1, epochs=3),
+                    check_learn_equal(torch, "potts16_card%d_max_colors1"
+                                      % card, eng, l2, burn=1, epochs=2))
+    log("  the categorical edges took %.1f s" % (time.perf_counter() - t0))
     return worst
 
 
@@ -3215,7 +3397,11 @@ def phase_sharded(torch, card):
 
 # ---- phase 13: every factor function through kernels #1 and #2 ----------
 
-FACTOR_KINDS = ("a14", "a13", "hub", "cat")
+FACTOR_KINDS = ("a14", "a13", "hub", "cat", "cat32", "cat128")
+# the cardinalities of the categorical kinds, 3 to the top, which one
+# variable of cat32 and cat128 takes: the three forms of the categorical
+# kernels (KMAX 8, 32, 128), `cdf` draws at kmax <= 8 and `vec` above
+CAT_CARDS = {"cat": 8, "cat32": 32, "cat128": 128}
 # the arities golden.eval_factor reads for these codes; the others take
 # any arity
 FIXED_ARITY = {"DP_GEN_CLASS_PRIOR": 1, "DP_GEN_LF_PRIOR": 1,
@@ -3229,6 +3415,7 @@ LEARN_ITEM_TILE = 1024   # kItemTile of csrc/itemgrid_learn.cu
 DP_CANDIDATES = 200000   # phase 13 (d): PERF.md's LF cell, 10 LFs
 DP_LFS = 10
 DP_ARGV = ["-l", "20", "-i", "100", "-b", "10"]
+POTTS_CAT = (256, 128)   # phase 13 (e): Potts side and cardinality
 # Three times the spread (max - min) over seeds 0, 1, 2 of the class's
 # mean marginal and of the learned weights (the largest over weights) of
 # DP_ARGV on the DP graph, the larger of the two engines', as `python3
@@ -3245,7 +3432,8 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
     ``kind``: 'a14' boolean, arity 1 to 4 (30 variables, 40 factors);
     'a13' boolean, arity 13 (30, 20); 'hub' boolean, arity 1 to 2, with
     variable 0, evidence, in each of HUB_FACTORS factors (40
-    variables); 'cat' cardinality 3 to 8 (``cards`` (lo, hi) in its
+    variables); 'cat', 'cat32', 'cat128' cardinality 3 to 8, 32, 128
+    (CAT_CARDS; one variable at 32 or 128; ``cards`` (lo, hi) in its
     place), arity 1 to 4.
     Codes of FIXED_ARITY take theirs. A share ``dtype1`` of the
     variables is dataType 1 (an item applies at its slot values only),
@@ -3259,9 +3447,11 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
     rng = np.random.default_rng(seed)
     n = n_vars or (40 if kind == "hub" else 30)
     nf = n_factors or {"hub": HUB_FACTORS, "a13": 20}.get(kind, 40)
-    if kind == "cat":
-        lo, hi = cards or (3, 8)
+    if kind in CAT_CARDS:
+        lo, hi = cards or (3, CAT_CARDS[kind])
         card = rng.integers(lo, hi + 1, n)
+        if kind != "cat":
+            card[rng.integers(n)] = hi
     else:
         card = np.full(n, 2)
     v = T.new_variables(n)
@@ -3370,25 +3560,27 @@ def dp_graph(candidates, n_lf, seed):
     return w, v, f, fm
 
 
-def factor_fixtures_of(name):
+def factor_fixtures_of(name, kinds=FACTOR_KINDS):
     """Phase 13 (a)'s graphs of factor code ``name`` alone: (graph name,
-    (name,), (w, v, f, fm)) in every kind that takes it (a13 only where
-    the arity is free), each from its own seed."""
+    (name,), (w, v, f, fm)) in every kind of ``kinds`` that takes it (a13
+    only where the arity is free), each from its own seed."""
     from numbskull_tpu_torch import types as T
     i = list(T.FACTORS).index(name)
     return [("%s/%s" % (name, kind), (name,),
              random_graph((name,), kind, 1000 + 10 * i + j))
             for j, kind in enumerate(FACTOR_KINDS)
-            if not (kind == "a13" and name in FIXED_ARITY)]
+            if kind in kinds and not (kind == "a13" and name in FIXED_ARITY)]
 
 
 def factor_fixtures():
-    """Phase 13 (a)'s graphs: every code alone (factor_fixtures_of),
-    then the three mixed graphs: every code on boolean variables (arity
-    as the code takes it, 1 to 4 otherwise), every code at cardinality
-    3 to 8, and the DP model with card-3 LF variables."""
+    """Phase 13 (a)'s graphs: every code alone (factor_fixtures_of) in
+    the kinds a14, a13, hub and cat, then the three mixed graphs: every
+    code on boolean variables (arity as the code takes it, 1 to 4
+    otherwise), every code at cardinality 3 to 8, and the DP model with
+    card-3 LF variables; then every code alone at cat32 and cat128."""
     from numbskull_tpu_torch import types as T
-    out = [g for name in T.FACTORS for g in factor_fixtures_of(name)]
+    out = [g for name in T.FACTORS
+           for g in factor_fixtures_of(name, FACTOR_KINDS[:4])]
     codes = tuple(T.FACTORS)
     out.append(("mixed/bool", codes,
                 random_graph(codes, "a14", 7, n_vars=60, n_factors=150)))
@@ -3396,7 +3588,8 @@ def factor_fixtures():
                 random_graph(codes, "cat", 8, n_vars=60, n_factors=150)))
     dp = tuple(n for n in codes if n.startswith("DP_"))
     out.append(("mixed/dp", dp, dp_graph(12, DP_LFS, 9)))
-    return out
+    return out + [g for name in T.FACTORS
+                  for g in factor_fixtures_of(name, FACTOR_KINDS[4:])]
 
 
 def exact_fixtures():
@@ -3426,7 +3619,7 @@ def _step_codes(t, ci):
 
 def sweep_paths(t):
     """{factor code: {sweep path}} of sweep tables ``t``: per step with
-    rows, ('item', lanes, fast) at kmax 2, ('row', KMAX template)
+    rows, ('item', lanes, fast) at kmax 2, ('cat', KMAX template)
     above (the choice of nsx_itemgrid_sweep_color)."""
     out = {}
     for ci in range(t.n_steps):
@@ -3436,27 +3629,29 @@ def sweep_paths(t):
             _, lanes, fast = t.item_shape[ci]
             path = ("item", lanes, bool(fast))
         else:
-            path = ("row", next(k for k in (8, 32, 128) if t.kmax <= k))
+            path = ("cat", next(k for k in (8, 32, 128) if t.kmax <= k))
         for c in _step_codes(t, ci):
             out.setdefault(c, set()).add(path)
     return out
 
 
 def learn_paths(lt):
-    """{factor code: {learn step template}} of learn tables ``lt``: the
-    choice of nsx_learn_step (learn_item_kernel at kmax 2 when the
-    step's longest piece fits LEARN_ITEM_TILE, else
-    learn_step_kernel<KMAX>)."""
+    """{factor code: {learn step kernel}} of learn tables ``lt``: the
+    choice of nsx_learn_step (at kmax 2 learn_item_kernel when the
+    step's longest piece fits LEARN_ITEM_TILE, else learn_step_kernel;
+    learn_cat_kernel<KMAX> above)."""
     t = lt.sweep
     out = {}
     for ci in range(t.n_steps):
         if t.n_rows[ci] == 0:
             continue
-        if t.kmax <= 2 and lt.smem_items[ci] <= LEARN_ITEM_TILE:
+        if t.kmax > 2:
+            path = "learn_cat<%d>" % next(k for k in (8, 32, 128)
+                                          if t.kmax <= k)
+        elif lt.smem_items[ci] <= LEARN_ITEM_TILE:
             path = "learn_item"
         else:
-            path = "learn_step<%d>" % next(k for k in (2, 8, 32, 128)
-                                           if t.kmax <= k)
+            path = "learn_step"
         for c in _step_codes(t, ci):
             out.setdefault(c, set()).add(path)
     return out
@@ -3464,14 +3659,16 @@ def learn_paths(lt):
 
 def required_paths(name):
     """(sweep, learn) requirements of factor code ``name``: labels and
-    tests on a sweep path of sweep_paths, and the learn templates. Every
-    code runs the row kernel (KMAX 8) and all three learn templates; in
-    the item kernel, a code of free arity runs 1 lane, 2 to 4 and 8 or
-    more lanes an item (FAST for ops/itemgrid.FAST_TYPES, and not FAST
-    in the mixed graph), a code of fixed arity the lanes its arity gives."""
+    tests on a sweep path of sweep_paths, and the learn kernels. Every
+    code runs the categorical kernel at KMAX 8, 32 and 128 and every
+    learn kernel; in the item kernel, a code of free arity runs 1 lane,
+    2 to 4 and 8 or more lanes an item (FAST for ops/itemgrid.FAST_TYPES,
+    and not FAST in the mixed graph), a code of fixed arity the lanes
+    its arity gives."""
     from numbskull_tpu_torch import types as T
     from numbskull_tpu_torch.ops.itemgrid import FAST_TYPES, sweep_lanes
-    need = [("row<8>", lambda p: p == ("row", 8))]
+    need = [("cat<%d>" % k, lambda p, k=k: p == ("cat", k))
+            for k in (8, 32, 128)]
     fast = T.FACTORS[name] in FAST_TYPES
     if name in FIXED_ARITY:
         lanes = sweep_lanes(1, FIXED_ARITY[name])
@@ -3487,7 +3684,8 @@ def required_paths(name):
         if fast:
             need.append(("item not FAST",
                          lambda p: p[0] == "item" and not p[2]))
-    return need, ("learn_item", "learn_step<2>", "learn_step<8>")
+    return need, ("learn_item", "learn_step", "learn_cat<8>",
+                  "learn_cat<32>", "learn_cat<128>")
 
 
 def _potentials_vs_golden(torch, cg, model, seed):
@@ -3562,10 +3760,12 @@ def _phase13_compare(torch, fixtures, swept, learned):
                 swept.setdefault(c, set()).update(ps)
         eng = pig.ItemGridEngine(cg, device=DEVICE)
         kind = name.split("/")[0 if mixed else 1]
-        # L2 alone on the hub and a13 graphs, whose plain versions take
-        # the longest (a 1,100-item row, 20 colors); the settings differ
-        # in the weight update, which no graph kind changes
-        lps = FACTOR_LPS[:1] if kind in ("hub", "a13") else FACTOR_LPS
+        # L2 alone on the hub, a13, cat32 and cat128 graphs, whose plain
+        # versions take the longest (a 1,100-item row, 20 and more
+        # colors, 128 candidates); the settings differ in the weight
+        # update, which no graph kind changes
+        lps = FACTOR_LPS[:1] if kind in ("hub", "a13", "cat32", "cat128") \
+            else FACTOR_LPS
         t_l -= time.perf_counter()
         for label, lpk in lps:
             worst = max(worst, check_learn_equal(
@@ -3597,7 +3797,7 @@ def _phase13_coverage(swept, learned):
         ls = learned.get(code, set())
         log("  %-27s sweep: %s; learn: %s" % (name, ", ".join(
             "item L%d%s" % (p[1], " FAST" if p[2] else "")
-            if p[0] == "item" else "row<%d>" % p[1] for p in sorted(ps)),
+            if p[0] == "item" else "cat<%d>" % p[1] for p in sorted(ps)),
             ", ".join(sorted(ls))))
         need, need_l = required_paths(name)
         missing = [label for label, ok in need if not any(map(ok, ps))]
@@ -3753,8 +3953,70 @@ def _phase13_dp(torch, work, card):
                 learn_cost=learn_epoch_cost(torch, lt))
 
 
+def _phase13_potts(torch, card):
+    """Phase 13 (e): Potts POTTS_CAT (256x256 at cardinality 128: the
+    categorical kernels at KMAX 128) with 30 % evidence and a learnable
+    weight: ``ItemGridEngine.run`` (2 burn-in + 10 epochs) and ``.learn``
+    (1 + 5), each with the launch counts set to 0 just before and read
+    just after; the kernels held to the plain versions on its tables;
+    epoch-differenced ms of kernel and plain version. Returns what the
+    kernels line reads."""
+    import numpy as np
+
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.models import ising_color_hint, potts_grid
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    side, k = POTTS_CAT
+    w, v, f, fm, dm, _ = _with_evidence(potts_grid(
+        side, side, card=k, weight=0.25, fixed=False), 0.3, 7)
+    eng = pig.ItemGridEngine(compile_graph(
+        w, v, f, fm, domain_mask=dm, color_hint=ising_color_hint(side, side)),
+        device=DEVICE)
+    lp = LearnParams(regularization=2, reg_param=1e-4)
+    steps = sum(1 for n in eng.tables.n_rows if n > 0)
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    _, counts = eng.run(3, 2, 10)
+    torch.cuda.synchronize()
+    sweeps = pig.KERNEL_LAUNCHES
+    pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
+    wl, _, _ = eng.learn(3, 1, 5, 0.05, 0.99, lp)
+    torch.cuda.synchronize()
+    learns, burn_sweeps = pig.LEARN_LAUNCHES, pig.KERNEL_LAUNCHES
+    lt = eng.learn_tables()
+    tallies = counts.sum(dim=1).cpu().numpy()
+    log("  (e) potts%d_card%d: %d variables, kmax %d, %d colors; %d sweep "
+        "launches, %d learn launches (+ %d burn-in sweeps); weight %.6f "
+        "from %.2f" % (side, k, eng.cg.n_vars, eng.cg.kmax, steps, sweeps,
+                       learns, burn_sweeps, float(wl[0]),
+                       float(eng.cg.weight_init[0])))
+    if sweeps != 12 * steps or burn_sweeps != steps or \
+            learns != 5 * learn_launches_per_epoch(lt):
+        fail("Potts card %d: launches not as counted" % k)
+    if not (np.isin(tallies, (0, 10)).all() and (tallies == 10).any()) or \
+            not torch.isfinite(wl).all():
+        fail("Potts card %d: tallies or weights out of range" % k)
+    err = max(check_equal(torch, "potts%d_card%d" % (side, k), "own", eng,
+                          burn=1, epochs=1),
+              check_learn_equal(torch, "potts%d_card%d" % (side, k), eng,
+                                lp, burn=1, epochs=1))
+    rates = {}
+    for which in ("kernel", "plain"):
+        plain = which == "plain"
+        for mode, pts, lpx in (("infer", (1, 3) if plain else (5, 25),
+                                None),
+                               ("learn", (1, 2) if plain else (2, 10), lp)):
+            ups, ms = rate(torch, eng, plain, *pts, lp=lpx)
+            rates[(mode, which)] = ms
+            log("  potts%d_card%d %s %-6s %.4f ms/epoch (epochs %d..%d); %s"
+                % (side, k, mode, which, ms, *pts, card))
+    return dict(sweeps=sweeps, learns=learns, err=err, rates=rates,
+                sweep_cost=sweep_epoch_cost(torch, eng.tables),
+                learn_cost=learn_epoch_cost(torch, lt))
+
+
 def phase_factors(torch, card):
-    """Phase 13; returns what the kernels line reads of (d)."""
+    """Phase 13; returns what the kernels line reads of (d) and (e)."""
     log("== phase 13: every factor function through the sweep and learn "
         "kernels; %s" % card)
     t0 = time.perf_counter()
@@ -3774,22 +4036,34 @@ def phase_factors(torch, card):
     with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
         dp = _phase13_dp(torch, work, card)
     log("  (d) took %.1f s" % (time.perf_counter() - t1))
+    t1 = time.perf_counter()
+    potts = _phase13_potts(torch, card)
+    log("  (e) took %.1f s" % (time.perf_counter() - t1))
     log("  phase 13 took %.1f s" % (time.perf_counter() - t0))
     dp["err"] = max(dp["err"], worst)
-    return dp
+    return dict(dp=dp, potts=potts)
 
 
-def factors_records(dp):
+def _cat_entry(r, mode):
+    """A kernels-line entry of phase 13's run ``r`` (kernel #1 for
+    ``mode`` "infer", #2 for "learn")."""
+    launches, cost = ((r["sweeps"], r["sweep_cost"]) if mode == "infer"
+                      else (r["learns"], r["learn_cost"]))
+    out = dict(launches=launches, max_abs_err=r["err"],
+               ms=r["rates"][(mode, "kernel")],
+               plain_ms=r["rates"][(mode, "plain")])
+    out["bound_ms"], out["bound_by"] = bound(*cost)
+    return out
+
+
+def factors_records(r):
     """The `factors` mode's kernels line: kernels #1 and #2 with phase
-    13 (d)'s launches and epoch times on the DP graph."""
+    13 (d)'s launches and epoch times on the DP graph, and (e)'s on the
+    card-128 Potts grid under ``potts128``."""
     recs = []
-    for base, launches, mode, cost in (
-            (SWEEP, dp["sweeps"], "infer", dp["sweep_cost"]),
-            (LEARN, dp["learns"], "learn", dp["learn_cost"])):
-        rec = dict(base, launches=launches, max_abs_err=dp["err"],
-                   ms=dp["rates"][(mode, "kernel")],
-                   plain_ms=dp["rates"][(mode, "plain")], library_ms=None)
-        rec["bound_ms"], rec["bound_by"] = bound(*cost)
+    for base, mode in ((SWEEP, "infer"), (LEARN, "learn")):
+        rec = dict(base, **_cat_entry(r["dp"], mode), library_ms=None)
+        rec["potts128"] = _cat_entry(r["potts"], mode)
         recs.append(rec)
     return recs
 
@@ -3949,6 +4223,13 @@ def main():
     if sys.argv[1:] == ["factors"]:   # phases 1 and 13 only
         finish(torch, card, factors_records(phase_factors(torch, card)))
         return
+    if sys.argv[1:] == ["categorical"]:   # 1, 2 (categorical edges), 13
+        err = phase_cat_edges(torch)
+        recs = factors_records(phase_factors(torch, card))
+        for rec in recs:
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        finish(torch, card, recs)
+        return
     if sys.argv[1:] == ["dpspread"]:  # phase 1, then DP_TOL_*'s spread
         phase_dp_spread(torch, card)
         finish(torch, card, [])
@@ -3959,11 +4240,11 @@ def main():
         finish(torch, card, [stencil_record(launches, worst_s, lattice)])
         return
     worst = phase_compare(torch)
-    worst_l = phase_learn_compare(torch)
+    worst_l = max(phase_learn_compare(torch), phase_cat_edges(torch))
     worst_s = phase_stencil_compare(torch)
     # phase 13 next, while the process holds little: its plain versions
     # run many small tensor ops, which ran a third slower after phase 12
-    dp = phase_factors(torch, card)
+    factors = phase_factors(torch, card)
     with tempfile.TemporaryDirectory(prefix="nsx_chip_smoke_") as work:
         launches, ising_ns, err3 = phase_main_path(torch, work)
         learns, coin_ns, err4 = phase_learn_main_path(torch, work)
@@ -3986,9 +4267,9 @@ def main():
         learn_record(torch, learns, max(worst_l, err4, err5_l),
                      rates[("coin400k", "learn")], learn_cost, hbm),
         stencil_record(stencil_launches, worst_s, lattice)]
-    for rec, dp_rec in zip(records, factors_records(dp)):
-        rec["dp"] = {k: dp_rec[k] for k in ("launches", "max_abs_err", "ms",
-                                            "plain_ms", "bound_ms")}
+    for rec, mode in zip(records, ("infer", "learn")):
+        rec["dp"] = _cat_entry(factors["dp"], mode)
+        rec["potts128"] = _cat_entry(factors["potts"], mode)
     records += mc_records(mcr) + bsp_records(bspr) + \
         gather_records(gatherr)
     finish(torch, card, records)

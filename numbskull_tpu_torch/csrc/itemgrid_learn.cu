@@ -15,7 +15,9 @@
 // the sweep kernel.
 //
 // How: two launches on one stream per (epoch, color).
-//   learn_step_kernel  (learn_item_kernel at KMAX 2, see below)
+//   step kernel        learn_item_kernel at KMAX 2 (learn_step_kernel
+//                      for a tile of more than kItemTile items),
+//                      learn_cat_kernel at KMAX 8, 32, 128 (see below):
 //                      one block of kTileRows threads per tile, a run of
 //                      at most kTileRows of the color's rows whose items
 //                      fit the shared-memory budget
@@ -60,8 +62,16 @@
 // already made at each drawn value, the same function of the same
 // inputs; only an item that was not evaluated at a drawn value is
 // evaluated again. That kernel is held to 64 registers, 8 blocks an SM.
-// Other steps run learn_step_kernel, one thread per row, which reads its
-// items a second time for the gradient. The gradients never leave shared
+// A KMAX-2 tile of more items (a row of more than kItemTile) runs
+// learn_step_kernel, one thread per row, which reads its items a second
+// time for the gradient. At KMAX 8, 32 and 128 learn_cat_kernel runs the
+// tile's items in parallel twice: for both chains' potentials through
+// cat_potentials (itemgrid_common.cuh; every candidate the dense / d1 /
+// d2 rule keeps evaluated from one read of the item's arguments for both
+// chains, the terms added per (row, candidate) in item order), and for
+// the gradient, each item evaluated at the two drawn values from one more
+// read of its arguments (a tile's evaluations at every candidate do not
+// fit shared memory, so none is kept). The gradients never leave shared
 // memory: per step the partials are 8 B per (tile, weight), and the sum
 // kernel reads them once.
 //
@@ -95,6 +105,8 @@
 // w * shrink - step * g and w - step * g are single fmas, as XLA's CPU
 // backend contracts them in the interpret-mode TPU kernel that the port
 // is held to (ops/itemgrid.fma32 is the plain version's fma).
+
+#include <algorithm>
 
 #include "itemgrid_common.cuh"
 
@@ -171,109 +183,35 @@ __device__ __forceinline__ void block_tree(float& g, int& n, float* rg,
 }
 
 // eval_item for two value arrays at once (the free and the clamped
-// chain), every factor type: the arguments' tables are read once, and
-// each result is eval_item's for its array (the same integer statistics,
-// the same finalize)
-__device__ __forceinline__ void eval_item2(const Tables& t,
+// chain), the row's own argument at candidate ka in the first and kb in
+// the second: the arguments' tables are read once for the two
+// (eval_args2)
+__device__ __forceinline__ void eval_item2k(const Tables& t,
                                             const int32_t* xa,
                                             const int32_t* xb, int ftype,
-                                            int a0, int arity, int k,
+                                            int a0, int arity, int ka, int kb,
                                             float& ea, float& eb) {
-  ArgStats sa, sb;
-  const int h = arity > 1 ? arity - 1 : 0;
-  auto value = [&](int a, int& va, int& vb) {
-    const int vid = arg_ref(t, a0 + a);
-    if (vid < 0) {
-      va = vb = k;
-    } else {
-      va = xa[vid];
-      vb = xb[vid];
-    }
-  };
-  value(0, sa.v0, sb.v0);
-  value(h, sa.head, sb.head);
-  sa.head_eq = sb.head_eq = arg_eq(t, a0 + h);
-  sa.v1 = sb.v1 = sa.v2 = sb.v2 = 0;
-  if (arity > 1) value(1, sa.v1, sb.v1);
-  if (arity > 2) value(2, sa.v2, sb.v2);
-  sa.card0 = sb.card0 = arg_card(t, a0);
-  sa.card1 = sb.card1 = arity > 1 ? arg_card(t, a0 + 1) : sa.card0;
-  const int ua = sa.v0 - 1 < 0 ? 0 : (sa.v0 - 1 > h ? h : sa.v0 - 1);
-  const int ub = sb.v0 - 1 < 0 ? 0 : (sb.v0 - 1 > h ? h : sb.v0 - 1);
-  sa.ufo_sel = arg_value(t, xa, a0 + ua, k);
-  sb.ufo_sel = arg_value(t, xb, a0 + ub, k);
-  sa.n_zero = sa.n_one = sa.n_diff0 = sa.n_head_eq = sa.n_body_zero = 0;
-  sa.n_neq_eq = sa.n_eq_eq = sa.n_body_neq_eq = 0;
-  sb.n_zero = sb.n_one = sb.n_diff0 = sb.n_head_eq = sb.n_body_zero = 0;
-  sb.n_neq_eq = sb.n_eq_eq = sb.n_body_neq_eq = 0;
-  for (int a = 0; a < arity; ++a) {
-    int va, vb;
-    value(a, va, vb);
-    const int e = arg_eq(t, a0 + a);
-    sa.n_zero += va == 0;
-    sb.n_zero += vb == 0;
-    sa.n_one += va == 1;
-    sb.n_one += vb == 1;
-    sa.n_diff0 += va != sa.v0;
-    sb.n_diff0 += vb != sb.v0;
-    sa.n_neq_eq += va != e;
-    sb.n_neq_eq += vb != e;
-    sa.n_eq_eq += va == e;
-    sb.n_eq_eq += vb == e;
-    if (a < arity - 1) {
-      sa.n_head_eq += va == sa.head;
-      sb.n_head_eq += vb == sb.head;
-      sa.n_body_zero += va == 0;
-      sb.n_body_zero += vb == 0;
-      sa.n_body_neq_eq += va != e;
-      sb.n_body_neq_eq += vb != e;
-    }
-  }
-  ea = finalize(ftype, sa);
-  eb = finalize(ftype, sb);
+  eval_args2(
+      ftype, arity,
+      [&](int a, int& va, int& vb) {
+        const int vid = arg_ref(t, a0 + a);
+        if (vid < 0) {
+          va = ka;
+          vb = kb;
+        } else {
+          va = xa[vid];
+          vb = xb[vid];
+        }
+      },
+      [&](int a) { return t.arg_ec[a0 + a]; }, ea, eb);
 }
 
-// eval_item2, with the boolean types whose finalize reads one count
-// (any argument 0: ISTRUE, AND; any 1: OR; any unlike the first: EQUAL)
-// computed from that count alone, in fewer operations and registers (the
-// item kernel; in the row kernel the branch costs registers and time)
-__device__ __forceinline__ void eval_item2_fast(const Tables& t,
-                                                const int32_t* xa,
-                                                const int32_t* xb, int ftype,
-                                                int a0, int arity, int k,
-                                                float& ea, float& eb) {
-  if (ftype != F_EQUAL && ftype != F_ISTRUE && ftype != F_AND &&
-      ftype != F_OR) {
-    eval_item2(t, xa, xb, ftype, a0, arity, k, ea, eb);
-    return;
-  }
-  auto value = [&](int a, int& va, int& vb) {
-    const int vid = arg_ref(t, a0 + a);
-    if (vid < 0) {
-      va = vb = k;
-    } else {
-      va = xa[vid];
-      vb = xb[vid];
-    }
-  };
-  int v0a, v0b;
-  value(0, v0a, v0b);
-  bool za = false, zb = false, oa = false, ob = false, da = false,
-       db = false;
-  for (int a = 0; a < arity; ++a) {
-    int va, vb;
-    value(a, va, vb);
-    za |= va == 0;
-    zb |= vb == 0;
-    oa |= va == 1;
-    ob |= vb == 1;
-    da |= va != v0a;
-    db |= vb != v0b;
-  }
-  const bool neg_a = ftype == F_EQUAL ? da : ftype == F_OR ? !oa : za;
-  const bool neg_b = ftype == F_EQUAL ? db : ftype == F_OR ? !ob : zb;
-  ea = neg_a ? -1.0f : 1.0f;
-  eb = neg_b ? -1.0f : 1.0f;
+__device__ __forceinline__ void eval_item2(const Tables& t,
+                                           const int32_t* xa,
+                                           const int32_t* xb, int ftype,
+                                           int a0, int arity, int k,
+                                           float& ea, float& eb) {
+  eval_item2k(t, xa, xb, ftype, a0, arity, k, k, ea, eb);
 }
 
 // eval_item of item `it` at candidate k, its tables read here
@@ -284,14 +222,13 @@ __device__ __forceinline__ float eval_at(const Tables& t, const int32_t* x,
 }
 
 // one item's gradient at the drawn values, evaluated from the tables
+// (one read of its arguments for both chains)
 __device__ __forceinline__ float item_grad(const Tables& t,
                                            const LearnStep& p, int it,
                                            int p_val, int e_val) {
-  const int ftype = item_ftype(t, it);
-  const int a0 = item_arg0(t, it);
-  const int arity = item_arity(t, it);
-  const float ep = eval_item(t, p.xr, ftype, a0, arity, p_val);
-  const float ee = eval_item(t, p.xer, ftype, a0, arity, e_val);
+  float ep, ee;
+  eval_item2k(t, p.xr, p.xer, item_ftype(t, it), item_arg0(t, it),
+              item_arity(t, it), p_val, e_val, ep, ee);
   return __fmul_rn(__fsub_rn(ep, ee), p.it_fv[it]);
 }
 
@@ -417,8 +354,7 @@ __device__ __forceinline__ void item_tile(const Tables& t, const LearnStep& p,
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       if (dense ? k < card : (k == d1 || k == d2))
-        eval_item2_fast(t, p.xr, p.xer, ftype, a0, arity, k, e[k],
-                        e[2 + k]);
+        eval_item2(t, p.xr, p.xer, ftype, a0, arity, k, e[k], e[2 + k]);
     }
     s_e[j] = make_float4(e[0], e[1], e[2], e[3]);
     s_w[j] = w;
@@ -505,10 +441,11 @@ __global__ void __launch_bounds__(kTileRows, 8)
             s_mem, s_rg, s_rn);
 }
 
-// any other step: one thread per row (potentials, draws), then its
-// items' gradients, piece by piece
-template <int KMAX>
-__global__ void __launch_bounds__(kTileRows)
+// KMAX 2, a tile of more than kItemTile items (a row of more than
+// kItemTile items): one thread per row (potentials, draws), then its
+// items' gradients, piece by piece. Allowed 128 registers (4 blocks an
+// SM): ptxas left to itself spills it
+__global__ void __launch_bounds__(kTileRows, 4)
     learn_step_kernel(const Tables t, const LearnStep p, const Order o) {
   extern __shared__ float4 s_mem[];
   __shared__ float s_rg[kTileRows];
@@ -527,11 +464,7 @@ __global__ void __launch_bounds__(kTileRows)
     const int card = t.row_card[r];
     it0 = t.row_item[r];
     it1 = t.row_item[r + 1];
-    float pot_p[KMAX], pot_e[KMAX];
-    for_k<KMAX>([&](int k) {
-      pot_p[k] = 0.0f;
-      pot_e[k] = 0.0f;
-    });
+    float pot_p[2] = {0.0f, 0.0f}, pot_e[2] = {0.0f, 0.0f};
     for (int it = it0; it < it1; ++it) {
       const int m = item_meta(t, it);
       const int ftype = meta_ftype(m);
@@ -540,7 +473,7 @@ __global__ void __launch_bounds__(kTileRows)
       const int arity = item_arity(t, it);
       const bool dense = meta_dense(m);
       const int d1 = meta_d1(m), d2 = meta_d2(m);
-      for_k<KMAX>([&](int k) {
+      for_k<2>([&](int k) {
         const bool ok = dense ? k < card : (k == d1 || k == d2);
         if (ok) {
           float ep, ee;
@@ -550,7 +483,7 @@ __global__ void __launch_bounds__(kTileRows)
         }
       });
     }
-    draw_row<KMAX>(t, p, r, card, pot_p, pot_e, p_val, e_val, lrn);
+    draw_row<2>(t, p, r, card, pot_p, pot_e, p_val, e_val, lrn);
   }
 
   // the tile's items [P0, T1), in pieces of piece_items
@@ -570,6 +503,147 @@ __global__ void __launch_bounds__(kTileRows)
         s_inc[it - P0] = inc ? 1 : 0;
       }
     }
+    __syncthreads();
+    piece_sums(o, pc, P1 - P0, s_g, s_inc, s_rg, s_rn);
+    __syncthreads();  // the next piece reuses the shared memory
+  }
+}
+
+// a warp's share [Q0, Q1) of a piece's items (the piece starts at P0):
+// their gradients into s_g / s_inc at it - P0, items in parallel in
+// chunks of at most 32 items and kCatArgs staged argument values, as
+// cat_potentials walks them: lane j reads item j's record, the chunk's
+// arguments of both chains are staged side by side (cat_stage), and lane
+// j evaluates its item at its row's two drawn values from them
+// (cat_eval). s_ri holds the tile's rows' first items (tables'
+// numbering), s_pv / s_ev / s_lrn each row's drawn values and whether
+// its items carry the gradient
+__device__ void cat_gradients(const Tables& t, const LearnStep& p, int Q0,
+                              int Q1, int P0, const int* s_ri, int nr,
+                              const int* s_pv, const int* s_ev,
+                              const bool* s_lrn, float* s_g, uint8_t* s_inc,
+                              CatWarp<2>& sh) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = Q0; c0 < Q1;) {
+    const int it = c0 + lane;
+    const bool live = it < Q1;
+    int m = 0, a0 = 0, arity = 0;
+    if (live) {
+      m = item_meta(t, it);
+      a0 = item_arg0(t, it);
+      arity = item_arity(t, it);
+    }
+    const int2 pre = warp_scan2(make_int2(0, min(arity, kCatArgs + 1)));
+    const int nf =
+        __popc(__ballot_sync(0xffffffffu, live && pre.y <= kCatArgs));
+    const int n = nf > 0 ? nf : 1;
+    if (lane < n) {
+      sh.meta[lane] = m;
+      sh.a0[lane] = a0;
+      sh.arity[lane] = arity;
+    }
+    __syncwarp();
+    const bool staged = nf > 0;
+    const int A0 = sh.a0[0];
+    if (staged)
+      cat_stage<2>(t, p.xr, p.xer, A0, sh.a0[n - 1] + sh.arity[n - 1] - A0,
+                   sh);
+    if (lane < n) {
+      const int row = row_of(s_ri, nr, it);
+      const int pv = s_pv[row], ev = s_ev[row];
+      const int d1 = meta_d1(m), d2 = meta_d2(m);
+      const bool hit = d1 == ev || d1 == pv || d2 == ev || d2 == pv;
+      const bool inc =
+          s_lrn[row] && meta_ftype(m) != -1 && (meta_dense(m) || hit);
+      float g = 0.0f;
+      if (inc) {
+        float ep, ee;
+        cat_eval<2>(t, p.xr, p.xer, sh, staged, A0, lane, pv, ev, ep, ee);
+        g = __fmul_rn(__fsub_rn(ep, ee), p.it_fv[it]);
+      }
+      s_g[it - P0] = g;
+      s_inc[it - P0] = inc ? 1 : 0;
+    }
+    __syncwarp();  // the next chunk reuses the staged values
+    c0 += n;
+  }
+}
+
+// rows of a learn tile whose two chains' potentials fit kCatPotFloats
+// each: the categorical kernel's potential pass takes a tile's rows this
+// many at a time
+__host__ __device__ constexpr int cat_pot_rows(int K) {
+  return kCatPotFloats / cat_stride(K) < kTileRows
+             ? kCatPotFloats / cat_stride(K)
+             : kTileRows;
+}
+
+// KMAX 8, 32, 128: the tile's rows, cat_pot_rows at a time, each warp a
+// run of them (warp_rows), take both chains' potentials from
+// cat_potentials (items in parallel, each item's arguments read once for
+// the two chains and every candidate) into shared memory, and one lane
+// per row draws both chains (draw_row, as before). Then the gradient
+// pass runs each piece's items in parallel again, a quarter a warp
+// (cat_gradients: each item evaluated at the two drawn values from one
+// more staged read of its arguments), and piece_sums as before: the
+// tiles, pieces and sum order of build_learn_tables are unchanged. The
+// potentials and the gradients use the same dynamic shared memory in
+// turn
+template <int KMAX>
+__global__ void __launch_bounds__(kTileRows, 4)
+    learn_cat_kernel(const Tables t, const LearnStep p, const Order o) {
+  extern __shared__ float4 s_mem[];
+  __shared__ CatWarp<2> sh[kCatWarps];
+  __shared__ float s_rg[kTileRows];
+  __shared__ int s_rn[kTileRows];
+  __shared__ int s_ri[kTileRows + 1], s_pv[kTileRows], s_ev[kTileRows];
+  __shared__ bool s_lrn[kTileRows];
+  const int tid = threadIdx.x, lane = tid & 31;
+  CatWarp<2>& w = sh[tid >> 5];
+  const int tile = o.tile0 + blockIdx.x;
+  const int tr0 = o.tl_r0[tile], tr1 = o.tl_r0[tile + 1], nr = tr1 - tr0;
+  const int K = p.kmax, S = cat_stride(K), rows = cat_pot_rows(K);
+  float* pot_p = reinterpret_cast<float*>(s_mem);
+  float* pot_e = pot_p + rows * S;
+  for (int s0 = 0; s0 < nr; s0 += rows) {
+    int first, wn;
+    warp_rows(min(rows, nr - s0), first, wn);
+    if (wn > 0) {
+      float* pp = pot_p + first * S;
+      float* pe = pot_e + first * S;
+      for (int q = lane; q < wn * S; q += 32) {
+        pp[q] = 0.0f;
+        pe[q] = 0.0f;
+      }
+      __syncwarp();
+      const int r0 = tr0 + s0 + first;
+      cat_potentials<2>(t, p.weights, p.xr, p.xer, r0, wn, K, pp, pe, w);
+      if (lane < wn) {
+        int pv, ev;
+        bool lrn;
+        draw_row<KMAX>(t, p, r0 + lane, w.card[lane], pp + lane * S,
+                       pe + lane * S, pv, ev, lrn);
+        s_pv[s0 + first + lane] = pv;
+        s_ev[s0 + first + lane] = ev;
+        s_lrn[s0 + first + lane] = lrn;
+      }
+    }
+    __syncthreads();  // the next rows reuse the potentials
+  }
+  for (int i = tid; i <= nr; i += kTileRows) s_ri[i] = t.row_item[tr0 + i];
+  __syncthreads();
+
+  float* s_g = reinterpret_cast<float*>(s_mem);
+  uint8_t* s_inc = reinterpret_cast<uint8_t*>(s_g + o.smem_items);
+  const int T1 = s_ri[nr];
+  int P0 = s_ri[0];
+  for (int pc = o.tl_pc0[tile]; pc < o.tl_pc0[tile + 1];
+       ++pc, P0 += o.piece_items) {
+    const int P1 = min(P0 + o.piece_items, T1);
+    const int per = (P1 - P0 + kCatWarps - 1) / kCatWarps;
+    const int Q0 = min(P1, P0 + (tid >> 5) * per);
+    cat_gradients(t, p, Q0, min(P1, Q0 + per), P0, s_ri, nr, s_pv, s_ev,
+                  s_lrn, s_g, s_inc, w);
     __syncthreads();
     piece_sums(o, pc, P1 - P0, s_g, s_inc, s_rg, s_rn);
     __syncthreads();  // the next piece reuses the shared memory
@@ -680,17 +754,31 @@ __global__ void __launch_bounds__(128)
 }
 
 // shared memory per item: (gradient, counted), and on the item path
-// also both chains' evaluations, the weight, the slot flags and the row
+// also both chains' evaluations, the weight, the slot flags and the row;
+// the categorical kernel's potentials share it
 template <int KMAX>
 cudaError_t launch_step(const Tables& t, const LearnStep& p, const Order& o,
                         int n_tiles, cudaStream_t stream) {
-  const bool items = KMAX == 2 && o.smem_items <= kItemTile;
-  const size_t smem =
-      (static_cast<size_t>(o.smem_items) * (items ? 27 : 5) + 15) & ~15;
-  if (items)
-    learn_item_kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
-  else
-    learn_step_kernel<KMAX><<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+  if constexpr (KMAX == 2) {
+    const bool items = o.smem_items <= kItemTile;
+    const size_t smem =
+        (static_cast<size_t>(o.smem_items) * (items ? 27 : 5) + 15) & ~15;
+    if (items)
+      learn_item_kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+    else
+      learn_step_kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+  } else {
+    const size_t pots = sizeof(float) * 2 * cat_pot_rows(p.kmax) *
+                        static_cast<size_t>(cat_stride(p.kmax));
+    const size_t smem =
+        (std::max(pots, static_cast<size_t>(o.smem_items) * 5) + 15) & ~15;
+    // static and dynamic shared memory together pass 48 KB
+    const cudaError_t attr = cudaFuncSetAttribute(
+        learn_cat_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (attr != cudaSuccess) return attr;
+    learn_cat_kernel<KMAX><<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+  }
   return cudaGetLastError();
 }
 
@@ -703,6 +791,16 @@ cudaError_t launch_sum(const WeightSums& s, const int8_t* w_fixed, float* w,
                                                       u);
   return cudaGetLastError();
 }
+
+// every kernel of the library, as nsx_learn_attrs numbers them
+const void* const kKernels[] = {
+    reinterpret_cast<const void*>(learn_item_kernel),
+    reinterpret_cast<const void*>(learn_step_kernel),
+    reinterpret_cast<const void*>(learn_cat_kernel<8>),
+    reinterpret_cast<const void*>(learn_cat_kernel<32>),
+    reinterpret_cast<const void*>(learn_cat_kernel<128>),
+    reinterpret_cast<const void*>(learn_sum_kernel),
+    reinterpret_cast<const void*>(learn_apply_kernel)};
 
 }  // namespace
 
@@ -800,4 +898,20 @@ extern "C" int nsx_learn_apply(const int32_t* payload, const int8_t* w_fixed,
                        static_cast<cudaStream_t>(stream)>>>(
       payload, w_fixed, w, n_g, stride, goff, n_w, u);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the registers a thread and the local memory a thread (spills and local
+// arrays) of kernel `which` of kKernels (0: learn_item_kernel, 1:
+// learn_step_kernel, 2-4: learn_cat_kernel at KMAX 8, 32, 128, 5:
+// learn_sum_kernel, 6: learn_apply_kernel), as the loaded module reports
+// them
+extern "C" int nsx_learn_attrs(int which, int* regs, int* local_bytes) {
+  constexpr int n = sizeof(kKernels) / sizeof(kKernels[0]);
+  if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes a{};
+  const cudaError_t e = cudaFuncGetAttributes(&a, kKernels[which]);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
 }

@@ -26,15 +26,33 @@
 // goes to shared memory. Then one thread per row adds its items'
 // terms in item order from 0.0, chunk after chunk, which is the order of
 // the plain version, so the potentials are the same bits for any tile
-// size; then it draws and writes as the row kernel does. The wrapper
+// size; then it draws and writes (finish_row). The wrapper
 // picks L and the tile's rows from the step's rows, items and arguments
 // (ops/itemgrid.sweep_lanes, sweep_tile_rows), so that a short step
 // still gives enough blocks for the 132 SMs. A step whose items are all
 // EQUAL, ISTRUE, AND or OR runs the kernel built for those alone (FAST),
 // held to 32 registers so that 16 blocks fill an SM; any other step the
-// kernel with the general evaluator, held to 80 (6 blocks). At KMAX 8,
-// 32 and 128 sweep_color_kernel keeps one thread per row, its items in
-// series.
+// kernel with the general evaluator, held to 80 (6 blocks).
+//
+// At KMAX 8, 32 and 128 (any graph with a variable of cardinality 3 or
+// more: the data-programming models, LF models, Potts grids)
+// sweep_cat_kernel takes a tile of rows the same way, a run of them
+// each warp, and cat_potentials (itemgrid_common.cuh) walks a warp's
+// items in chunks: neighbouring lanes read neighbouring items' records,
+// the chunk's argument values are read once into shared memory, and
+// then lanes take (item, candidate) terms, every candidate that the
+// dense / d1 / d2 rule keeps evaluated from that one read (a dense item
+// at cardinality K read its arguments K times in the row kernel this
+// replaces; a sparse item keeps two terms, not K). Then lanes take
+// (row, candidate) pairs and add each row's terms in item order into its
+// potentials in shared memory, the plain version's order, so the
+// potentials are the same bits for any tile or chunk. One lane per row
+// then draws from them (finish_row, as before). The wrapper picks the
+// tile's rows (ops/itemgrid.cat_tile_rows): at most kCatThreads, and at
+// most kCatPotFloats potentials, so 32 rows at KMAX 128. What bounds it
+// (PERF.md): the work of a chunk, not its bytes; evaluating the
+// counts of the semantics table for codes that read none of them took
+// half of a DP epoch, so eval_args skips them.
 //
 // What bounds it on the H100: the bytes of every epoch, and, below them,
 // the latency of each item's chain of dependent loads (item -> argument
@@ -42,9 +60,10 @@
 // 12 B per item and 8 B per argument (25 B and 13 B unpacked): a
 // 33.5M-variable Ising epoch moves about 4.9 GB (was 7.95), a bound of
 // about 1.45 ms at the H100's 3.35 TB/s (H100 80GB HBM3, 700 W); its
-// times stand in PERF.md. At high cardinality the per-thread potential
-// array pot[KMAX] (local memory at KMAX 32 and 128) and the KMAX-fold
-// re-evaluation of every dense item add to that.
+// times stand in PERF.md. At high cardinality the categorical kernel
+// also evaluates K terms a dense item, from shared memory, and keeps no
+// per-thread potential array (the row kernel's pot[KMAX] sat in local
+// memory at KMAX 32 and 128).
 //
 // Draw inputs reproduce the TPU kernel's software path exactly: the
 // counter hash of _uniform_sw (itemgrid_pallas.py:1047), the (epoch,
@@ -82,7 +101,6 @@ namespace {
 enum : int { MAP_ROW = 0, MAP_TILE = 1 };
 enum : int { DRAW_CDF = 0, DRAW_VEC = 1, DRAW_SIGMOID2 = 2 };
 
-constexpr int kRowThreads = 128;   // threads of a row-kernel block
 constexpr int kItemThreads = 128;  // threads of an item-kernel block
 constexpr int kChunk = 512;        // items a block holds in shared memory
 constexpr int kArgChunk = 1024;    // argument values it stages (FAST, L 1)
@@ -97,7 +115,7 @@ struct Step {
   int row0, n_rows, kmax, map_kind, draw_kind;
   uint32_t seed977, salt16;
   int tally, kext;
-  int tile_rows;      // item kernel: rows of a block's tile
+  int tile_rows;      // rows of a block's tile
 };
 
 // the row's uniform under the step's position map
@@ -139,36 +157,31 @@ __device__ __forceinline__ void finish_row(const Tables& t, const Step& p,
     p.counts[static_cast<int64_t>(vid) * K + v] += 1;
 }
 
-// KMAX 8, 32, 128: one thread per row, its items in series
+// KMAX 8, 32, 128: block b takes the step's rows [b * tile_rows, ...),
+// each of its kCatWarps warps a run of them (warp_rows), whose
+// potentials cat_potentials sums item-parallel into shared memory
+// (tile_rows x cat_stride(kmax) floats, dynamic); then one lane per row
+// draws from them (finish_row). No warp waits for another
 template <int KMAX>
-__global__ void __launch_bounds__(kRowThreads)
-    sweep_color_kernel(const Tables t, const Step p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n_rows) return;
-  const int r = p.row0 + i;
-  const int card = t.row_card[r];
-
-  float pot[KMAX];
-  for_k<KMAX>([&](int k) { pot[k] = 0.0f; });
-  const int it_end = t.row_item[r + 1];
-  for (int it = t.row_item[r]; it < it_end; ++it) {
-    const int m = item_meta(t, it);
-    const int ftype = meta_ftype(m);
-    const float w = p.weights[item_wid(t, it)];
-    const int a0 = item_arg0(t, it);
-    const int arity = item_arity(t, it);
-    const bool dense = meta_dense(m);
-    const int d1 = meta_d1(m), d2 = meta_d2(m);
-    // the dense / d1 / d2 rule of ops/gibbs.color_potentials
-    for_k<KMAX>([&](int k) {
-      const bool ok = dense ? k < card : (k == d1 || k == d2);
-      if (ok) {
-        const float e = eval_item(t, p.xr, ftype, a0, arity, k);
-        pot[k] = __fadd_rn(pot[k], __fmul_rn(w, e));
-      }
-    });
-  }
-  finish_row<KMAX>(t, p, i, r, card, pot);
+__global__ void __launch_bounds__(kCatThreads)
+    sweep_cat_kernel(const Tables t, const Step p) {
+  extern __shared__ float s_pot[];
+  __shared__ CatWarp<1> sh[kCatWarps];
+  const int i0 = blockIdx.x * p.tile_rows;
+  int first, nr;
+  warp_rows(min(p.tile_rows, p.n_rows - i0), first, nr);
+  if (nr <= 0) return;
+  const int lane = threadIdx.x & 31, S = cat_stride(p.kmax);
+  const int r0 = p.row0 + i0 + first;
+  float* pot = s_pot + first * S;
+  for (int q = lane; q < nr * S; q += 32) pot[q] = 0.0f;
+  __syncwarp();
+  CatWarp<1>& w = sh[threadIdx.x >> 5];
+  cat_potentials<1>(t, p.weights, p.xr, nullptr, r0, nr, p.kmax, pot,
+                    nullptr, w);
+  if (lane < nr)
+    finish_row<KMAX>(t, p, i0 + first + lane, r0 + lane, w.card[lane],
+                     pot + lane * S);
 }
 
 // the one fact that finalize reads for EQUAL, ISTRUE, AND and OR, from
@@ -407,9 +420,11 @@ __global__ void __launch_bounds__(kItemThreads, FAST ? 16 : 6)
 }
 
 template <int KMAX>
-cudaError_t launch_rows(const Tables& t, const Step& p, cudaStream_t stream) {
-  const int blocks = (p.n_rows + kRowThreads - 1) / kRowThreads;
-  sweep_color_kernel<KMAX><<<blocks, kRowThreads, 0, stream>>>(t, p);
+cudaError_t launch_cat(const Tables& t, const Step& p, cudaStream_t stream) {
+  const int blocks = (p.n_rows + p.tile_rows - 1) / p.tile_rows;
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(p.tile_rows) * cat_stride(p.kmax);
+  sweep_cat_kernel<KMAX><<<blocks, kCatThreads, smem, stream>>>(t, p);
   return cudaGetLastError();
 }
 
@@ -435,8 +450,8 @@ cudaError_t launch_items(const Tables& t, const Step& p, int lanes,
   }
 }
 
-// every item kernel, then the row kernels, as nsx_itemgrid_sweep_attrs
-// numbers them
+// every item kernel, then the categorical kernels, as
+// nsx_itemgrid_sweep_attrs numbers them
 const void* const kKernels[] = {
     reinterpret_cast<const void*>(sweep_item_kernel<1, false>),
     reinterpret_cast<const void*>(sweep_item_kernel<2, false>),
@@ -450,16 +465,17 @@ const void* const kKernels[] = {
     reinterpret_cast<const void*>(sweep_item_kernel<8, true>),
     reinterpret_cast<const void*>(sweep_item_kernel<16, true>),
     reinterpret_cast<const void*>(sweep_item_kernel<32, true>),
-    reinterpret_cast<const void*>(sweep_color_kernel<8>),
-    reinterpret_cast<const void*>(sweep_color_kernel<32>),
-    reinterpret_cast<const void*>(sweep_color_kernel<128>)};
+    reinterpret_cast<const void*>(sweep_cat_kernel<8>),
+    reinterpret_cast<const void*>(sweep_cat_kernel<32>),
+    reinterpret_cast<const void*>(sweep_cat_kernel<128>)};
 
 }  // namespace
 
-// tile_rows: rows of an item-kernel tile (KMAX 2), 1 to kItemThreads;
-// lanes: threads per item there, a power of two to 32; fast: every item
-// of the step is EQUAL, ISTRUE, AND or OR; the row kernels ignore all
-// three
+// tile_rows: rows of a tile, at KMAX 2 1 to kItemThreads, above it 1 to
+// kCatThreads with tile_rows x cat_stride(kmax) <= kCatPotFloats; lanes:
+// threads per item at KMAX 2, a power of two to 32; fast: every item of
+// the step is EQUAL, ISTRUE, AND or OR; the categorical kernels ignore
+// lanes and fast
 extern "C" int nsx_itemgrid_sweep_color(
     const int32_t* row_vid, const int32_t* row_card, const int32_t* row_upos,
     const int8_t* row_flags, const int32_t* row_item, const int32_t* it_arg,
@@ -484,16 +500,19 @@ extern "C" int nsx_itemgrid_sweep_color(
     return static_cast<int>(fast ? launch_items<true>(t, p, lanes, s)
                                  : launch_items<false>(t, p, lanes, s));
   }
-  if (kmax <= 8) return static_cast<int>(launch_rows<8>(t, p, s));
-  if (kmax <= 32) return static_cast<int>(launch_rows<32>(t, p, s));
-  if (kmax <= 128) return static_cast<int>(launch_rows<128>(t, p, s));
+  if (kmax > 128 || tile_rows < 1 || tile_rows > kCatThreads ||
+      tile_rows * cat_stride(kmax) > kCatPotFloats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kmax <= 8) return static_cast<int>(launch_cat<8>(t, p, s));
+  if (kmax <= 32) return static_cast<int>(launch_cat<32>(t, p, s));
+  if (kmax <= 128) return static_cast<int>(launch_cat<128>(t, p, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // the registers a thread and the local memory a thread (spills and local
 // arrays) of kernel `which` of kKernels (0-5: the item kernel at 1, 2, 4,
-// 8, 16, 32 lanes an item; 6-11: the same, FAST; 12-14: the row kernel
-// at KMAX 8, 32, 128), as the loaded module reports them
+// 8, 16, 32 lanes an item; 6-11: the same, FAST; 12-14: the categorical
+// kernel at KMAX 8, 32, 128), as the loaded module reports them
 extern "C" int nsx_itemgrid_sweep_attrs(int which, int* regs,
                                         int* local_bytes) {
   constexpr int n = sizeof(kKernels) / sizeof(kKernels[0]);

@@ -10,10 +10,14 @@ gather and its VMEM cap; none of them is carried over. Values stay in
 original variable order on the device, every color's rows and their
 items live in flat CSR tables packed to 12 B an item and 8 B an argument
 (:func:`build_tables`), and one launch of ``csrc/itemgrid_sweep.cu`` per
-(epoch, color) resamples a color: at kmax 2 a block evaluates a tile of
-rows' items in parallel and one thread per row sums and draws
+(epoch, color) resamples a color: a block evaluates a tile of rows'
+items in parallel, at kmax 2 one thread per row sums and draws
 (:func:`sweep_tile_rows`, :func:`sweep_lanes` and :func:`fast_step` shape
-the launch), above it one thread per row does it all. Learning (:func:`learn_color`) launches
+the launch), above it each warp takes a run of the tile's rows, its
+lanes (item, candidate) terms from one read of each item's arguments,
+then (row, candidate) sums, and one lane per row draws
+(:func:`cat_tile_rows` shapes the launch). Learning
+(:func:`learn_color`) launches
 ``csrc/itemgrid_learn.cu`` twice per (epoch, color): both chains' draws
 with each tile of rows' gradients summed per weight into partial slots,
 then each weight's partials summed and its update; both sums have an
@@ -108,6 +112,15 @@ SWEEP_ARG_CHUNK = 1024  # argument values it stages at once (fast steps,
 #                         one lane an item)
 SWEEP_BLOCKS = 132 * 8  # blocks a step should give: 8 for each of the
 #                         H100's 132 SMs
+# the categorical kernels (kmax > 2; csrc/itemgrid_common.cuh kCat*): a
+# block's warps and threads (its rows at most), the argument values and
+# the (item, candidate) terms a warp's chunk of at most WARP items holds,
+# and the potentials a block holds, per chain
+CAT_WARPS = 4
+CAT_THREADS = 128
+CAT_ARGS = 128
+CAT_TERMS = 512
+CAT_POT_FLOATS = 4224
 
 # factor types whose value the sweep's item kernel reads from one fact of
 # the arguments (any 0, any 1, any unlike the first)
@@ -357,8 +370,7 @@ class SweepTables:
     item_index: list           # per step: its plan items, in table order
     item0: list                # per step: first item
     item_shape: list           # per step: (tile rows, lanes an item,
-    #                            fast) of its item-kernel launch (kmax 2;
-    #                            sweep_tile_rows, sweep_lanes, fast_step)
+    #                            fast) of its launch (sweep_shape)
     conflict: list             # per step: a row gathers its own color
     present: list              # per step: factor codes present
     row_index: list = None     # per step: the table rows' color ranks
@@ -498,6 +510,45 @@ def sweep_tile_rows(n_rows: int, n_items: int, lanes: int = 1) -> int:
     return min(max(fill, busy), SWEEP_THREADS)
 
 
+def cat_stride(kmax: int) -> int:
+    """Floats a row's potentials take in the categorical kernels' shared
+    memory: kmax, made odd (so that one lane per row reads them without
+    bank conflicts)."""
+    return int(kmax) | 1
+
+
+def cat_tile_rows(n_rows: int, n_items: int, kmax: int) -> int:
+    """Rows of a block of the sweep's categorical kernel (kmax > 2; its
+    CAT_WARPS warps take a quarter each): :func:`sweep_tile_rows` at one
+    lane an item, at most the power of two whose potentials fit
+    CAT_POT_FLOATS (32 rows at kmax 128). No tile size changes a result:
+    each (row, candidate) adds its own terms in item order."""
+    cap = CAT_POT_FLOATS // cat_stride(kmax)
+    cap = 1 << (min(cap, CAT_THREADS).bit_length() - 1)
+    return min(sweep_tile_rows(n_rows, n_items, 1), cap)
+
+
+def cat_pot_rows(kmax: int) -> int:
+    """Rows of a learn tile whose potentials the categorical learn
+    kernel holds at once (both chains, CAT_POT_FLOATS each): it takes a
+    tile's rows this many at a time (``cat_pot_rows`` of
+    ``csrc/itemgrid_learn.cu``)."""
+    return min(CAT_POT_FLOATS // cat_stride(kmax), TILE_ROWS)
+
+
+def sweep_shape(n_rows: int, ftype, arity, kmax: int) -> tuple:
+    """A step's launch shape (tile rows, lanes an item, fast): at kmax 2
+    from :func:`sweep_lanes`, :func:`sweep_tile_rows` and
+    :func:`fast_step`, above it (:func:`cat_tile_rows`, 1, 0)."""
+    arity = np.asarray(arity)
+    n_items = len(arity)
+    if kmax > 2:
+        return cat_tile_rows(n_rows, n_items, kmax), 1, 0
+    lanes = sweep_lanes(n_items, int(arity.sum()))
+    return (sweep_tile_rows(n_rows, n_items, lanes), lanes,
+            int(fast_step(ftype, arity)))
+
+
 def shard_rows(upos: np.ndarray, n_g: int, d: int):
     """The split rule of ``shard_schedule`` (itemgrid_pallas.py:3130):
     of a step whose rows have draw positions ``upos``, shard ``d`` of
@@ -595,9 +646,8 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         n_rows.append(n)
         item_index.append(iv)
         item0.append(n_item_total)
-        lanes = sweep_lanes(len(iv), int(arity.sum()))
-        item_shape.append((sweep_tile_rows(n, len(iv), lanes), lanes,
-                           int(fast_step(p.it_ftype[iv], arity))))
+        item_shape.append(sweep_shape(n, p.it_ftype[iv], arity,
+                                      int(cg.kmax)))
         n_row_total += n
         n_arg_total += int(arity.sum())
         n_item_total += len(iv)
@@ -729,7 +779,8 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
                     [I] * 2 + [P],
                     "nsx_learn_partial": [P] * 7 + [I] * 5 + [P],
                     "nsx_learn_apply": [P] * 3 + [I] * 6 + [F] * 4 +
-                    [I] * 2 + [P]}
+                    [I] * 2 + [P],
+                    "nsx_learn_attrs": [I, P, P]}
         for fn_name, argtypes in sigs.items():
             fn = getattr(lib, fn_name)
             fn.restype = ctypes.c_int
@@ -807,8 +858,8 @@ def _launch_sweep(t: SweepTables, ci: int, x: torch.Tensor,
                   seed977: int, salt16: int, tally: bool,
                   send: torch.Tensor | None = None,
                   ext: torch.Tensor | None = None) -> None:
-    """Launch the CUDA kernel for step ``ci`` on the current stream (at
-    kmax 2 the item kernel, shaped by ``t.item_shape[ci]``). A
+    """Launch the CUDA kernel for step ``ci`` on the current stream
+    (shaped by ``t.item_shape[ci]``). A
     step with no rows launches nothing and counts nothing; a
     conflicting step reads from a snapshot of ``x``. With ``send``, the
     kernel also writes each row's value after the step to

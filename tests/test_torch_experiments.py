@@ -11,7 +11,8 @@ import sys
 import pytest
 
 from numbskull_tpu_torch import benchutil
-from numbskull_tpu_torch.experiments import (common, degree_sweep,
+from numbskull_tpu_torch.experiments import (cat_rates, common,
+                                             degree_sweep,
                                              engine_tradeoff, gather_rates,
                                              hbm_scale,
                                              lattice_rates, lattice_tiles,
@@ -55,6 +56,7 @@ COLUMNS = {
                            "n_vars", "epoch_ms", "updates_per_s",
                            "vs_1proc"], ["mesh"]),
     "sweep_rates": ([], sweep_rates.HEADER),    # no JAX counterpart
+    "cat_rates": ([], cat_rates.HEADER),
     "lattice_rates": ([], lattice_rates.HEADER),
     "gather_rates": ([], gather_rates.HEADER),
 }
@@ -83,6 +85,8 @@ RUNS = {
         p, 16, 3, "cpu", meshes=(2,), timeout=120),
     "sweep_rates": lambda p: sweep_rates.run(p, "cpu", scale=0.0005,
                                              points=(1, 3)),
+    "cat_rates": lambda p: cat_rates.run(p, "cpu", scale=0.0005,
+                                         points=(1, 2), label="turn 1"),
     "lattice_rates": lambda p: lattice_rates.run(p, "cpu", sides=(8, 12),
                                                  points=(1, 3)),
     "gather_rates": lambda p: gather_rates.run(
@@ -156,6 +160,16 @@ def test_driver_writes_its_tsv(tmp_path, name):
         assert [int(r["kmax"]) for r in rows] == [2, 2, 3, 32, 128, 2, 2]
         assert all(_number(r["epoch_ms"]) > 0 for r in rows)
         assert {r["checkout"] for r in rows} == {REPO}
+    if name == "cat_rates":
+        assert [(r["graph"], r["what"]) for r in rows] == [
+            ("dp100", "infer"), ("lf100", "infer"),
+            ("potts5_card32", "infer"), ("potts5_card128", "infer"),
+            ("dp100", "learn"), ("lf100", "learn"),
+            ("potts32_card64_ev30", "learn")]
+        assert [int(r["kmax"]) for r in rows] == [3, 3, 32, 128, 3, 3, 64]
+        assert all(_number(r["epoch_ms"]) > 0 and _number(r["bound_ms"]) > 0
+                   for r in rows)
+        assert {r["checkout"] for r in rows} == {REPO + " (turn 1)"}
     if name == "lattice_rates":
         assert [(r["side"], r["cells"]) for r in rows] == \
             [("8", "64"), ("12", "144")]

@@ -48,16 +48,22 @@ def sweep_matches_tpu_kernel(name, kind, se):
     kernel's plan refuses the hub graphs (a row of more than 64 items);
     a13 takes one to two minutes an interpret-mode run; phase 13 runs
     both on the card."""
-    model = dict(_graphs(name))["%s/%s" % (name, kind)]
+    sweep_model_matches_tpu_kernel(dict(_graphs(name))["%s/%s"
+                                                       % (name, kind)], se)
+
+
+def sweep_model_matches_tpu_kernel(model, se, seed=5):
+    """``sweep_matches_tpu_kernel`` on graph ``model`` (w, v, f, fm)."""
     cg = _jax_cg(model)
     plan, reason = jig.plan_item_grid(cg, se)
     assert plan is not None, reason
     pcg = compiled_graph_from_reference(dataclasses.asdict(cg))
     eng = pig.ItemGridEngine(pcg, sample_evidence=se, device="cpu",
                              schedule=schedule_from_jax_plan(cg, plan))
-    x, c = eng.run(5, 1, 2)
+    x, c = eng.run(seed, 1, 2)
     x_ref, c_ref = jig.PallasItemGridEngine(
-        cg, sample_evidence=se, interpret=True).run(seed=5, burn=1, epochs=2)
+        cg, sample_evidence=se, interpret=True).run(seed=seed, burn=1,
+                                                    epochs=2)
     np.testing.assert_array_equal(x.numpy(), x_ref)
     np.testing.assert_array_equal(c.numpy(), c_ref)
 

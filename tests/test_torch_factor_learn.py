@@ -39,32 +39,41 @@ BOOLEAN = ("NOOP", "IMPLY_NATURAL", "OR", "AND", "EQUAL", "ISTRUE",
            "LINEAR", "RATIO", "LOGICAL", "IMPLY_MLN")
 
 
-def learn_matches_tpu_kernel(name):
+def learn_matches_tpu_kernel(name, kind=None):
     """Plain learn == interpret ``learn(return_state=True)`` bit for bit
     on the code's graph, and a weight moved; on NOOP's none did: the TPU
     kernel counts no NOOP item in a weight's step
     (itemgrid_pallas.py:363), so a weight of NOOP items alone keeps its
     value under every regularization (the port counted them and shrank
     it under ``grad_agg="sum"``)."""
-    kind = "a14" if name in BOOLEAN else "cat"
+    kind = kind or ("a14" if name in BOOLEAN else "cat")
     model = dict((n, m) for n, _, m in
                  chip_smoke.factor_fixtures_of(name))[name + "/" + kind]
+    label, lpk = chip_smoke.FACTOR_LPS[CODES.index(name) % 3]
+    want = learn_model_matches_tpu_kernel(model, lpk, 3 + CODES.index(name),
+                                          label)
+    moved = not np.array_equal(want[0], np.asarray(
+        jax_compile_graph(*model).weight_init))
+    assert moved == (name != "NOOP")
+
+
+def learn_model_matches_tpu_kernel(model, lpk, seed, label=""):
+    """Plain learn == interpret ``learn(return_state=True)`` bit for bit
+    on graph ``model`` (w, v, f, fm) under LearnParams ``lpk``, 1
+    burn-in and 1 epoch; returns the TPU kernel's (w, x, xe)."""
     cg = jax_compile_graph(*model)
     plan, reason = jig.plan_item_grid(cg, True)
     assert plan is not None, reason
     pcg = compiled_graph_from_reference(dataclasses.asdict(cg))
     eng = pig.ItemGridEngine(pcg, device="cpu",
                              schedule=learn_schedule_from_jax_plan(cg, plan))
-    label, lpk = chip_smoke.FACTOR_LPS[CODES.index(name) % 3]
-    seed = 3 + CODES.index(name)
     got = eng.learn(seed, 1, 1, 0.05, 1.0, LearnParams(**lpk))
     want = jig.PallasItemGridEngine(cg, interpret=True).learn(
         seed=seed, burn=1, epochs=1, stepsize=0.05, decay=1.0,
         lp=JaxLearnParams(**lpk), return_state=True)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=label)
-    moved = not np.array_equal(want[0], np.asarray(cg.weight_init))
-    assert moved == (name != "NOOP")
+    return want
 
 
 @pytest.mark.parametrize("name", CODES[:13])
@@ -72,3 +81,21 @@ def test_plain_learn_matches_tpu_kernel(name):
     """Codes AND to EQUAL_CAT_CONST (``test_torch_factor_learn_b.py``:
     the others)."""
     learn_matches_tpu_kernel(name)
+
+
+# codes held at cardinality 3 to 32 as well (``random_graph``'s cat32
+# kind: the categorical learn kernel's KMAX 32 form on the card): one of
+# each family of categorical semantics and the DP model's, those whose
+# interpret-mode learn kernel builds in seconds (IMPLY_NATURAL_CAT takes
+# over two minutes); phase 13 of chip_smoke.py runs every code there
+CAT32 = ("AND_CAT", "DP_GEN_CLASS_PRIOR", "DP_GEN_DEP_FIXING",
+         "DP_GEN_DEP_REINFORCING", "DP_GEN_LF_PRIOR", "DP_GEN_LF_PROPENSITY",
+         "IMPLY_MLN_CAT", "UFO")
+
+
+@pytest.mark.parametrize("name", [n for n in CAT32 if n in CODES[:13]])
+def test_plain_learn_matches_tpu_kernel_cat32(name):
+    """CAT32's codes of AND to EQUAL_CAT_CONST at cardinality 3 to 32
+    (``test_torch_factor_learn_b.py``: the others)."""
+    learn_matches_tpu_kernel(name, "cat32")
+

@@ -111,6 +111,9 @@ def _check_unpacks(t):
     for n, p, iv, shape in zip(t.n_rows, t.plans, t.item_index,
                                t.item_shape):
         arity = np.asarray(p.it_arity)[iv]
+        if t.kmax > 2:
+            assert shape == (pig.cat_tile_rows(n, len(iv), t.kmax), 1, 0)
+            continue
         lanes = pig.sweep_lanes(len(iv), int(arity.sum()))
         assert shape == (pig.sweep_tile_rows(n, len(iv), lanes), lanes,
                          int(pig.fast_step(np.asarray(p.it_ftype)[iv],
