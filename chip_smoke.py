@@ -1090,7 +1090,7 @@ def phase_main_path(torch, workdir):
     tm = metrics.snapshot()["timings"]
     log("  breakdown (s): " + ", ".join(
         "%s %.3f" % (k, tm[k]["total_s"]) for k in (
-            "load.files_s", "load.compile_s", "inference.engine_build_s",
+            "load.files_s", "compile", "state_init", "itemgrid.build",
             "inference.sweep_s", "dump.marginals_s")))
     if launches != (burn + epochs) * n_colors:
         fail("kernel launches %d != (%d + %d) x %d colors"
@@ -1162,8 +1162,9 @@ def phase_learn_main_path(torch, workdir):
     tm = metrics.snapshot()["timings"]
     log("  breakdown (s): " + ", ".join(
         "%s %.3f" % (k, tm[k]["total_s"]) for k in (
-            "load.files_s", "load.compile_s", "learning.engine_build_s",
-            "learning.sweep_s", "inference.sweep_s", "dump.marginals_s")))
+            "load.files_s", "compile", "state_init", "itemgrid.build",
+            "itemgrid.learn_tables", "learning.sweep_s", "inference.sweep_s",
+            "dump.weights_s", "dump.marginals_s")))
     if learns != lrn * per_epoch:
         fail("learn launches %d != %d epochs x %d" % (learns, lrn,
                                                       per_epoch))
@@ -1638,15 +1639,15 @@ def phase_hbm(torch, card):
     out["learn_launches"] = pig.LEARN_LAUNCHES
     out["learn_burn_launches"] = pig.KERNEL_LAUNCHES - out["launches"]
     tm = metrics.snapshot()["timings"]
-    for k in ("inference.engine_build_s", "inference.sweep_s",
-              "learning.engine_build_s", "learning.sweep_s"):
+    for k in ("itemgrid.build", "inference.sweep_s",
+              "itemgrid.learn_tables", "learning.sweep_s"):
         out[k] = tm[k]["total_s"]
-    log("  FactorGraph(engine='hbm'): inference engine build %.2f s, "
+    log("  FactorGraph(engine='hbm'): engine build %.2f s, "
         "%d + %d epochs %.3f s (%d launches); learn tables %.2f s, 1 + %d "
         "epochs %.3f s (%d learn launches)"
-        % (out["inference.engine_build_s"], burn, epochs,
+        % (out["itemgrid.build"], burn, epochs,
            out["inference.sweep_s"], out["launches"],
-           out["learning.engine_build_s"], lrn, out["learning.sweep_s"],
+           out["itemgrid.learn_tables"], lrn, out["learning.sweep_s"],
            out["learn_launches"]))
     eng = fg.engine(True)
     lt = eng.learn_tables()
@@ -2998,7 +2999,7 @@ def _ckpt_db(torch, work, coin, out):
     out["db_load_s"] = snap["timings"]["load.db_s"]["total_s"]
     log("  (e) main -u: %.2f s, DB load %.3f s, compile %.3f s, launches "
         "%s" % (wall, out["db_load_s"],
-                snap["timings"]["load.compile_s"]["total_s"], launches))
+                snap["timings"]["compile"]["total_s"], launches))
     if not launches[0] or not launches[1]:
         fail("-u: the sweep or learn kernel was not launched")
     conn = dbsource.connect("sqlite://" + db)
@@ -3880,9 +3881,9 @@ def _dp_cli(torch, gdir, work, engine, seed):
 def _dp_timing(r) -> str:
     tm = r["snap"]["timings"]
     return ", ".join("%s %.3f" % (k, tm[k]["total_s"]) for k in (
-        "load.files_s", "load.compile_s", "learning.engine_build_s",
-        "learning.sweep_s", "inference.engine_build_s", "inference.sweep_s",
-        "dump.marginals_s") if k in tm)
+        "load.files_s", "compile", "state_init", "itemgrid.build",
+        "itemgrid.learn_tables", "learning.sweep_s", "inference.sweep_s",
+        "dump.weights_s", "dump.marginals_s") if k in tm)
 
 
 def _phase13_dp(torch, work, card):

@@ -23,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from numbskull_tpu_torch.observability import metrics
+from numbskull_tpu_torch.observability import span
 from numbskull_tpu_torch.ops.gibbs import SamplerState
 
 _FORMAT_VERSION = 1
@@ -35,7 +35,7 @@ def save_checkpoint(path: str, state: SamplerState, seed: int,
                     meta: dict | None = None) -> None:
     """Persist the sampler state and the base seed (and JSON-serializable
     metadata); the write is atomic (``.tmp``, then ``os.replace``)."""
-    with metrics.time("checkpoint.save_s"):
+    with span("checkpoint.save_s"):
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp"
         arrays = {name: getattr(state, name).cpu().numpy()
@@ -50,7 +50,7 @@ def save_checkpoint(path: str, state: SamplerState, seed: int,
 
 def load_checkpoint(path: str, device):
     """Returns (SamplerState on ``device``, base seed, meta dict)."""
-    with metrics.time("checkpoint.load_s"), \
+    with span("checkpoint.load_s"), \
             np.load(path, allow_pickle=False) as z:
         version = int(z["format_version"])
         if version != _FORMAT_VERSION:

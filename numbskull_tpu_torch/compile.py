@@ -30,6 +30,8 @@ import os
 
 import numpy as np
 
+from numbskull_tpu_torch.observability import span
+
 _INT = np.int32
 
 _CORE = None
@@ -860,6 +862,7 @@ def _plans_native(variables, factors, fmap, factors_to_skip, color,
     return plans
 
 
+@span("compile")
 def compile_graph(weights, variables, factors, fmap,
                   factors_to_skip=None,
                   max_colors: int | None = None,

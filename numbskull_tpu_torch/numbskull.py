@@ -29,7 +29,7 @@ import torch
 from numbskull_tpu_torch import dataloading
 from numbskull_tpu_torch import types as T
 from numbskull_tpu_torch.compile import compile_graph
-from numbskull_tpu_torch.observability import annotate, metrics
+from numbskull_tpu_torch.observability import metrics, span
 from numbskull_tpu_torch.ops.gibbs import GibbsEngine, LearnParams, init_state
 from numbskull_tpu_torch.ops.itemgrid import EnvelopeError, ItemGridEngine
 from numbskull_tpu_torch.timer import Timer
@@ -336,7 +336,8 @@ class FactorGraph:
         self.seed = int(seed)
         self.device = resolve_device(device)
         self.engine_mode = engine
-        self.state = init_state(cg, self.device)
+        with span("state_init"):
+            self.state = init_state(cg, self.device)
         self.inference_epochs_done = 0
         self.inference_total_time = 0.0
         self.learning_total_time = 0.0
@@ -420,7 +421,7 @@ class FactorGraph:
         ``path`` is resumed, its seed with it (numbskull_tpu/numbskull.py:
         351-372, :440-461); otherwise the base seed is drawn, and only
         when there are epochs to run, as a run without a checkpoint does.
-        Each chunk is an ``nsx.chunk`` region in a profiler trace."""
+        Each chunk is the span ``chunk``."""
         from numbskull_tpu_torch.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
         every = max(int(every), 1)
@@ -433,7 +434,7 @@ class FactorGraph:
             seed = self._next_seed()
         while done < epochs:
             n = min(every, epochs - done)
-            with annotate("nsx.chunk"):
+            with span("chunk"):
                 run(n, done, seed)
             done += n
             save_checkpoint(path, self.state, seed, meta={done_key: done})
@@ -466,13 +467,11 @@ class FactorGraph:
                     sample_evidence: bool, seed: int, epoch_offset=None):
         """One timed inference run (:meth:`_sweep`)."""
         with Timer() as t:
-            with metrics.time("inference.engine_build_s"):
-                eng = self.engine(sample_evidence)
-            with metrics.time("inference.sweep_s"):
+            eng = self.engine(sample_evidence)
+            with span("inference.sweep_s"):
                 self._sweep(eng, burnin_epochs, epochs, sample_evidence,
                             seed, epoch_offset)
                 self._sync()
-        metrics.observe("inference.run_s", t.interval)
         metrics.add("inference.epochs", epochs + burnin_epochs)
         metrics.add("inference.variable_updates",
                     float(self.cg.n_vars) * (epochs + burnin_epochs))
@@ -520,11 +519,10 @@ class FactorGraph:
         """One learning run, seeded as :meth:`_sweep` seeds inference;
         both chains continue from the current state."""
         with Timer() as t:
-            with metrics.time("learning.engine_build_s"):
-                eng = self.engine(True)
-                if isinstance(eng, ItemGridEngine):
-                    eng.learn_tables()
-            with metrics.time("learning.sweep_s"):
+            eng = self.engine(True)
+            if isinstance(eng, ItemGridEngine):
+                eng.learn_tables()
+            with span("learning.sweep_s"):
                 if isinstance(eng, GibbsEngine):
                     self.state = eng.learn(
                         self.state, seed, epochs, stepsize, decay,
@@ -542,8 +540,9 @@ class FactorGraph:
                     self.state.var_value = x
                     self.state.var_value_evid = xe
                 self._sync()
-        metrics.observe("learning.run_s", t.interval)
         metrics.add("learning.epochs", epochs)
+        metrics.add("learning.variable_updates",
+                    float(self.cg.n_vars) * (epochs + burnin_epochs))
         self.learning_total_time += t.interval
         self._last_learn_s = t.interval
 
@@ -585,7 +584,8 @@ class FactorGraph:
     # --- dumps (DimmWitted text format, reference factorgraph.py:210-229) --
 
     def dump_weights(self, fout: str):
-        dump_weight_text(self.getWeights()[:self.cg.n_weights], fout)
+        with span("dump.weights_s"):
+            dump_weight_text(self.getWeights()[:self.cg.n_weights], fout)
 
     def dump_probabilities(self, fout: str, epochs: int):
         dump_marginal_text(self.cg, self._counts(), epochs, fout)
@@ -704,7 +704,7 @@ class NumbSkull:
         if not directory:
             print("No factor graph specified")
             return
-        with metrics.time("load.files_s"):
+        with span("load.files_s"):
             meta, weights, variables, factors, fmap, vmap, domain_mask = \
                 dataloading.load_factor_graph_files(
                     directory,
@@ -719,13 +719,12 @@ class NumbSkull:
             print("    variables:", meta["variables"])
             print("    factors:  ", meta["factors"])
             print("    edges:    ", meta["edges"])
-        with metrics.time("load.compile_s"):
-            cg = compile_graph(weights, variables, factors, fmap,
-                               max_colors=self.max_colors,
-                               domain_values=vmap["value"],
-                               domain_mask=domain_mask,
-                               seed=self.seed,
-                               cache=self.plan_cache or None)
+        cg = compile_graph(weights, variables, factors, fmap,
+                           max_colors=self.max_colors,
+                           domain_values=vmap["value"],
+                           domain_mask=domain_mask,
+                           seed=self.seed,
+                           cache=self.plan_cache or None)
         if not self.quiet:
             print("chromatic schedule: %d colors" % cg.n_colors)
         self._add_graph(cg)
@@ -739,7 +738,7 @@ class NumbSkull:
         salt/src/numbskull_minion.py:142-188). Accepts any DB-API URL
         handled by ``dbsource.connect`` (postgresql:// or sqlite://)."""
         from numbskull_tpu_torch import dbsource
-        with metrics.time("load.db_s"):
+        with span("load.db_s"):
             conn = dbsource.connect(dburl or self.dburl)
             try:
                 cur = conn.cursor()
@@ -751,9 +750,8 @@ class NumbSkull:
             print("DB graph: %d weights, %d variables, %d factors, "
                   "%d edges" % (len(weight), len(variable), len(factor),
                                 edges))
-        with metrics.time("load.compile_s"):
-            self.loadFactorGraph(weight, variable, factor, fmap,
-                                 domain_mask, edges)
+        self.loadFactorGraph(weight, variable, factor, fmap, domain_mask,
+                             edges)
         return meta
 
     def getFactorGraph(self, fgID: int = 0) -> FactorGraph:
@@ -770,7 +768,7 @@ class NumbSkull:
                      checkpoint_every=self.checkpoint_every)
         if out:
             os.makedirs(self.output_dir, exist_ok=True)
-            with metrics.time("dump.marginals_s"):
+            with span("dump.marginals_s"):
                 fg.dump_probabilities(
                     os.path.join(self.output_dir,
                                  "inference_result.out.text"),

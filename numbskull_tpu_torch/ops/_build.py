@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import time
 
+from numbskull_tpu_torch.observability import span
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "..", "csrc")
 BUILD_DIR = os.path.join(_HERE, "..", "..", "build", "numbskull_tpu_torch")
@@ -59,28 +61,31 @@ def sources_digest() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu`` as a ctypes library."""
+    """Build (once) and load ``csrc/<name>.cu`` as a ctypes library; the
+    first call of a process for ``name`` is the span ``kernels.load``."""
     if name in _LIBS:
         return _LIBS[name]
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, "lib%s_%s.so"
-                            % (name, sources_digest()))
-    with open(os.path.join(BUILD_DIR, ".build.%s.lock" % name),
-              "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.isfile(lib_path):
-            tmp = lib_path + ".tmp%d" % os.getpid()
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed for %s:\n%s%s"
-                                   % (src, proc.stdout, proc.stderr))
-            os.replace(tmp, lib_path)
-            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                                "path": lib_path,
-                                "ptxas": proc.stdout + proc.stderr}
-    lib = ctypes.CDLL(lib_path)
+    with span("kernels.load"):
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        lib_path = os.path.join(BUILD_DIR, "lib%s_%s.so"
+                                % (name, sources_digest()))
+        with open(os.path.join(BUILD_DIR, ".build.%s.lock" % name),
+                  "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.isfile(lib_path):
+                tmp = lib_path + ".tmp%d" % os.getpid()
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed for %s:\n%s%s"
+                                       % (src, proc.stdout, proc.stderr))
+                os.replace(tmp, lib_path)
+                BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                    "path": lib_path,
+                                    "ptxas": proc.stdout + proc.stderr}
+        lib = ctypes.CDLL(lib_path)
     _LIBS[name] = lib
     return lib

@@ -76,6 +76,7 @@ import numpy as np
 import torch
 
 from numbskull_tpu_torch.compile import CompiledGraph
+from numbskull_tpu_torch.observability import span
 from numbskull_tpu_torch.ops.factor_eval import present_types_of
 from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
                                           eval_items_at, plan_tensors)
@@ -1610,9 +1611,10 @@ class ItemGridEngine:
         self.cg = cg
         self.device = device
         self.sample_evidence = bool(sample_evidence)
-        self.schedule = schedule or default_schedule(cg)
-        self.tables = build_tables(cg, self.schedule, sample_evidence,
-                                   device)
+        with span("itemgrid.build"):
+            self.schedule = schedule or default_schedule(cg)
+            self.tables = build_tables(cg, self.schedule, sample_evidence,
+                                       device)
         self._learn = None
 
     def _tensor(self, value, default, dtype):
@@ -1639,7 +1641,17 @@ class ItemGridEngine:
         """``ext_pot`` (V, K'): external potentials added to every
         variable's conditional before each draw. ``plain=True`` runs the
         plain version on the engine's device (how ``chip_smoke.py``
-        holds the kernel to it on the card)."""
+        holds the kernel to it on the card). The call is the span
+        ``itemgrid.run``; a caller that runs an epoch a call
+        (``parallel/bsp``) calls :meth:`run_loop`, which opens none."""
+        with span("itemgrid.run"):
+            return self.run_loop(seed, burn, epochs, weight_value, x0,
+                                 ext_pot, plain)
+
+    def run_loop(self, seed: int, burn: int, epochs: int,
+                 weight_value=None, x0=None, ext_pot=None,
+                 plain: bool = False):
+        """:meth:`run` without its span: the arguments and the launches."""
         step = color_step_reference if plain else sweep_color
         cg, dev = self.cg, self.device
         w = self._tensor(weight_value, cg.weight_init, torch.float32)
@@ -1656,8 +1668,9 @@ class ItemGridEngine:
 
     def learn_tables(self) -> LearnTables:
         if self._learn is None:
-            self._learn = build_learn_tables(self.tables,
-                                             self.cg.weight_fixed)
+            with span("itemgrid.learn_tables"):
+                self._learn = build_learn_tables(self.tables,
+                                                 self.cg.weight_fixed)
         return self._learn
 
     def learn(self, seed: int, burn: int, epochs: int, stepsize: float,
@@ -1673,7 +1686,22 @@ class ItemGridEngine:
         ``ext_pot_evid`` to the clamped chain; without
         ``ext_pot_evid`` the clamped chain takes ``ext_pot``, as
         ``GibbsEngine`` does (numbskull_tpu/ops/gibbs.py:451-453).
-        ``plain=True`` runs the plain versions on the engine's device."""
+        ``plain=True`` runs the plain versions on the engine's device.
+        The call is the span ``itemgrid.learn``; a caller that learns an
+        epoch a call (``parallel/bsp``) calls :meth:`learn_loop`, which
+        opens none."""
+        with span("itemgrid.learn"):
+            return self.learn_loop(seed, burn, epochs, stepsize, decay, lp,
+                                   weight_value, x0, xe0, ext_pot,
+                                   ext_pot_evid, plain)
+
+    def learn_loop(self, seed: int, burn: int, epochs: int,
+                   stepsize: float, decay: float = 1.0,
+                   lp: LearnParams | None = None, weight_value=None,
+                   x0=None, xe0=None, ext_pot=None, ext_pot_evid=None,
+                   plain: bool = False):
+        """:meth:`learn` without its span: the arguments and the
+        launches."""
         if not self.sample_evidence:
             raise ValueError("learning needs an engine built with "
                              "sample_evidence=True")

@@ -499,9 +499,9 @@ class BSPItemGridInference:
         """Every part's local run from the global chain: [(values,
         counts)] per part."""
         st = self.state
-        return [eng.run(_i32(seed + p), burn=burn, epochs=epochs,
-                        x0=st.values, weight_value=st.weights, ext_pot=ext,
-                        plain=plain)
+        return [eng.run_loop(_i32(seed + p), burn=burn, epochs=epochs,
+                             x0=st.values, weight_value=st.weights,
+                             ext_pot=ext, plain=plain)
                 for p, eng in enumerate(self.engines)]
 
     def _exchange(self, outs, tally: bool) -> None:
@@ -541,11 +541,11 @@ class BSPItemGridInference:
         """Every part's learning epoch ``e`` from the global state:
         [(weights, free chain, clamped chain)] per part."""
         st = self.state
-        return [eng.learn(_i32(seed + 104729 * e + p), burn=0, epochs=1,
-                          stepsize=step, decay=1.0, lp=lp,
-                          weight_value=st.weights, x0=st.values,
-                          xe0=st.values_evid, ext_pot=ext,
-                          ext_pot_evid=ext_e, plain=plain)
+        return [eng.learn_loop(_i32(seed + 104729 * e + p), burn=0,
+                               epochs=1, stepsize=step, decay=1.0, lp=lp,
+                               weight_value=st.weights, x0=st.values,
+                               xe0=st.values_evid, ext_pot=ext,
+                               ext_pot_evid=ext_e, plain=plain)
                 for p, eng in enumerate(self.engines)]
 
     def _learn_exchange(self, outs) -> None:
