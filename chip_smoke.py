@@ -10,7 +10,8 @@ full run takes phase 13 right after phase 2):
 
 1. Device: the card's name and power limit, the torch and CUDA versions,
    and the build (``make -C native``, then nvcc of the sweep, learn,
-   exchange, lattice and gather kernels, all five at once).
+   exchange, lattice and gather kernels, all five at once), with the
+   kernels' registers and the categorical learn kernels' blocks an SM.
 2. Kernels against their plain versions on the card.
    Sweep: for coin, Ising 64x64, LF card 3, Potts card 20, 64 and 128,
    and grouped voting at degree 50 (arity 51), 5 burn-in plus 20
@@ -46,6 +47,11 @@ full run takes phase 13 right after phase 2):
    and 128, inference and learning; Potts 16x16 compiled with
    max_colors=1 (a conflicting step). All bit-equal to the plain
    versions.
+   The categorical learn kernel's kept and re-read forms
+   (``phase_kept_form``): a DP graph of 20,000 candidates x 24 LFs (the
+   EHR shape, every step kept) under two learn settings, and bipartite
+   graphs at cardinality 8, 32 and 40 whose steps launch tiles of both
+   forms; weights and both chains bit-equal to the plain version.
    Lattice: ``grid_gibbs`` (kernel #8) against ``grid_gibbs_reference``
    from one lattice, x and count bit-equal, on odd and even sides, 1 x m
    and n x 1, 70000 rows or columns, weight 0.4 and -30, a bias,
@@ -186,8 +192,10 @@ full run takes phase 13 right after phase 2):
    codes alone, boolean at arity 1 to 4, at arity 13 (the 8-lane item
    path; codes of free arity), with one row of 1,100 items (1 lane,
    the learn step kernel at KMAX 2) and at cardinality 3 to 8, 3 to 32
-   and 3 to 128 (the categorical kernels at KMAX 8, 32, 128), each under
-   every map x draw; then every code mixed on
+   and 3 to 128 (the categorical kernels at KMAX 8, 32, 128; at 8 and
+   32 with a row too wide for the learn kernel's kept form, so that
+   both learn kernels run), each under every map x draw; then every
+   code mixed on
    boolean and on categorical variables, and the DP model, under
    ``GROUP_SCHEDULES``; each also learning under L2 and, but for the
    hub, a13, cat32 and cat128 graphs, L1 with learn_non_evidence and
@@ -234,7 +242,9 @@ kernels line (no kernel runs on the mesh engine's path), ``python3
 chip_smoke.py factors`` phases 1 and 13, with a kernels line of kernels
 #1 and #2 on phase 13's DP graph (and its Potts grid under
 ``potts128``), ``python3 chip_smoke.py categorical`` phases 1, 2's
-categorical edges and 13, with the same line, and ``python3
+categorical edges and kept and re-read forms and 13, with the same
+line, ``python3 chip_smoke.py kept`` phases 1 and 2's kept and
+re-read forms (empty kernels line), and ``python3
 chip_smoke.py dpspread`` phase 1 and the spread over three seeds that
 DP_TOL_* are three times of (empty kernels line).
 """
@@ -329,7 +339,7 @@ HBM_GRID = (4096, 8192)  # bench.py:199, the 33,554,432-variable Ising
 # the learn step kernels' and the sweep kernels' names
 # (csrc/itemgrid_learn.cu, csrc/itemgrid_sweep.cu), in a trace
 LEARN_STEP_KERNELS = ("learn_step_kernel", "learn_item_kernel",
-                      "learn_cat_kernel")
+                      "learn_cat_kernel", "learn_kept_kernel")
 SWEEP_KERNELS = ("sweep_item_kernel", "sweep_cat_kernel")
 # the sweep kernels as nsx_itemgrid_sweep_attrs numbers them
 SWEEP_ATTRS = tuple("sweep_item_kernel<%d, %s>" % (lanes, fast)
@@ -339,7 +349,8 @@ SWEEP_ATTRS = tuple("sweep_item_kernel<%d, %s>" % (lanes, fast)
 # the learn kernels as nsx_learn_attrs numbers them
 LEARN_ATTRS = ("learn_item_kernel", "learn_step_kernel") + tuple(
     "learn_cat_kernel<%d>" % k for k in (8, 32, 128)) + (
-    "learn_sum_kernel", "learn_apply_kernel")
+    "learn_sum_kernel", "learn_apply_kernel") + tuple(
+    "learn_kept_kernel<%d>" % k for k in (8, 32, 128))
 # learn_item_kernel spills at its 64-register cap (__launch_bounds__
 # (kTileRows, 8)): printed, not failed (PERF.md)
 KNOWN_SPILLS = ("learn_item_kernel",)
@@ -431,6 +442,7 @@ def phase_device(torch):
                     log("    ptxas: " + line.strip())
     log("  " + sweep_resources())
     log("  " + learn_resources())
+    log("  " + learn_occupancy())
     for n in LATTICES:
         plan = stencil_kernel.lattice_plan(n, n, 250)
         log("  lattice %dx%d plan %s: block %s, %d B dynamic shared memory"
@@ -448,7 +460,8 @@ def _kernel_attrs(fn, names) -> list:
         rc = fn(which, ctypes.byref(regs), ctypes.byref(local))
         if rc != 0:
             fail("cudaFuncGetAttributes of %s: CUDA error %d" % (name, rc))
-        if "_cat_kernel" in name and local.value:
+        if ("_cat_kernel" in name or "_kept_kernel" in name) and \
+                local.value:
             fail("%s uses %d B of local memory a thread (a spill or a "
                  "local array)" % (name, local.value))
         out.append((name, regs.value, local.value))
@@ -481,6 +494,31 @@ def learn_resources() -> str:
     return _attrs_line("learn kernels", _kernel_attrs(
         itemgrid._kernel_lib("itemgrid_learn").nsx_learn_attrs,
         LEARN_ATTRS))
+
+
+def learn_occupancy() -> str:
+    """Blocks an SM of each categorical learn kernel at kmax KMAX, with
+    the dynamic shared memory of a DP step's tile (kmax 3, 540 items) and
+    with the largest a launch asks for there (a tile of TILE_ITEMS items,
+    or cat_pot_rows rows' potentials), as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them."""
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    fn = pig._kernel_lib("itemgrid_learn").nsx_learn_occupancy
+    out = []
+    for name, first in (("learn_cat_kernel", 2), ("learn_kept_kernel", 7)):
+        for which, k in enumerate((8, 32, 128), first):
+            got = []
+            for kmax, items in ((3, 540), (k, pig.TILE_ITEMS)):
+                pots = 8 * pig.cat_pot_rows(kmax) * pig.cat_stride(kmax)
+                smem = (max(pots, 5 * items) + 15) & ~15
+                blocks = ctypes.c_int()
+                rc = fn(which, pig.TILE_ROWS, smem, ctypes.byref(blocks))
+                if rc != 0:
+                    fail("occupancy of %s<%d>: CUDA error %d"
+                         % (name, k, rc))
+                got.append("%d at %d B" % (blocks.value, smem))
+            out.append("%s<%d> %s" % (name, k, ", ".join(got)))
+    return "learn blocks an SM: " + "; ".join(out)
 
 
 def log_sweep(label, by_kernel):
@@ -837,6 +875,102 @@ def phase_cat_edges(torch):
     return worst
 
 
+KEPT_DP = (20000, 24)    # phase 2's kept-form DP graph: the EHR shape
+KEPT_MIXED = (300, 600, 2, 70)  # left rows, right rows, degree, wide degree
+
+
+def _kept_mixed(card, seed):
+    """(weights, variables, factors, fmap) of a bipartite graph at
+    cardinality ``card`` whose left rows fall in tiles of both forms of
+    the categorical learn kernel: KEPT_MIXED's left variables each in
+    arity-2 factors (CAT_STAR_CODES in turn, 4 dyadic weights, one fixed)
+    with ``degree`` random right variables, except left rows 200 and 201
+    with ``wide`` (more evaluations than a warp keeps, so their tile takes
+    the re-read form while the left step's other tiles are kept); a third
+    of the variables dataType 1 (sparse items), 30 % evidence."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    n_l, n_r, degree, wide = KEPT_MIXED
+    rng = np.random.default_rng(seed)
+    deg = np.full(n_l, degree)
+    deg[200:202] = wide
+    n, m = n_l + n_r, int(deg.sum())
+    v = T.new_variables(n)
+    v["cardinality"] = card
+    v["dataType"] = rng.random(n) < 1 / 3
+    v["isEvidence"] = rng.random(n) < 0.3
+    v["initialValue"] = rng.integers(0, card, n)
+    w = T.new_weights(4)
+    w["initialValue"] = rng.choice(DYADIC, 4)
+    w["isFixed"] = (True, False, False, False)
+    f = T.new_factors(m)
+    f["factorFunction"] = [T.FACTORS[CAT_STAR_CODES[i % len(CAT_STAR_CODES)]]
+                           for i in range(m)]
+    f["weightId"] = rng.integers(0, 4, m)
+    f["featureValue"] = 1.0
+    f["arity"] = 2
+    f["ftv_offset"] = 2 * np.arange(m)
+    fm = T.new_fmap(2 * m)
+    fm["vid"][0::2] = np.repeat(np.arange(n_l), deg)
+    fm["vid"][1::2] = n_l + np.concatenate(
+        [rng.choice(n_r, d, replace=False) for d in deg])
+    fm["dense_equal_to"] = rng.integers(0, card, 2 * m)
+    return w, v, f, fm
+
+
+def phase_kept_form(torch):
+    """Phase 2, the categorical learn kernel's two forms, each held bit
+    for bit against the plain version (weights and both chains after
+    every learn step): (a) ``dp_graph`` at the EHR shape (KEPT_DP: 24
+    LFs), every step in the kept form, under L2 with learn_non_evidence
+    (the benchmark's setting) and under the default parameters; (b) the
+    bipartite graphs of ``_kept_mixed`` at cardinality 8, 32 and 40 (the
+    KMAX 8, 32 and 128 kernels; a card-128 row is too wide to keep), a
+    step of which has tiles of both forms (a launch of each kernel).
+    Returns the largest difference."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    log("== phase 2: the categorical learn kernel's kept and re-read forms "
+        "(bit-equal)")
+    t0 = time.perf_counter()
+    worst = 0.0
+    cand, lfs = KEPT_DP
+    eng = pig.ItemGridEngine(compile_graph(*dp_graph(cand, lfs, 3)),
+                             device=DEVICE)
+    lt = eng.learn_tables()
+    items = [len(i) for i in lt.sweep.item_index]
+    log("  dp%d_lf%d: kept items %s of %s a step" % (
+        cand, lfs, lt.kept_items, items))
+    if lt.kept_items != items or eng.cg.kmax != 3:
+        fail("the EHR-shape DP graph is not in the kept form in every step")
+    for label, lp in (("l2_non_evidence", LearnParams(
+            regularization=2, reg_param=0.1, learn_non_evidence=True)),
+                      ("default", LearnParams())):
+        worst = max(worst, check_learn_equal(
+            torch, "dp%d_lf%d_%s" % (cand, lfs, label), eng, lp, burn=1,
+            epochs=3))
+    l2 = LearnParams(regularization=2, reg_param=0.01)
+    for card in (8, 32, 40):
+        w, v, f, fm = _kept_mixed(card, card)
+        eng = pig.ItemGridEngine(compile_graph(w, v, f, fm), device=DEVICE)
+        lt = eng.learn_tables()
+        items = [len(i) for i in lt.sweep.item_index]
+        log("  kept_mixed_card%d: kept items %s of %s a step, tiles %s"
+            % (card, lt.kept_items, items, lt.n_tiles))
+        if not any(0 < k < n for k, n in zip(lt.kept_items, items)):
+            fail("kept_mixed_card%d: no step has tiles of both forms" % card)
+        worst = max(worst, check_learn_equal(
+            torch, "kept_mixed_card%d" % card, eng, l2, burn=1, epochs=3))
+        worst = max(worst, check_learn_equal(
+            torch, "kept_mixed_card%d_non_ev" % card, eng, LearnParams(
+                regularization=1, reg_param=0.01, truncation=4,
+                learn_non_evidence=True), burn=1, epochs=3))
+    log("  the two forms took %.1f s" % (time.perf_counter() - t0))
+    return worst
+
+
 def _ising_one_color():
     """Ising 64x64 with 30 % evidence and a learnable weight, compiled
     with max_colors=1: every row reads neighbours of its own color."""
@@ -936,9 +1070,10 @@ def _learn_fixtures():
 
 def learn_launches_per_epoch(lt) -> int:
     """Learn kernel launches of one epoch on these tables: per color with
-    rows, the step kernel, and the sum kernel when it has items."""
-    return sum(1 + (lt.n_wt[ci] > 0) for ci in range(lt.sweep.n_steps)
-               if lt.sweep.n_rows[ci] > 0)
+    rows, the step kernel (two where a categorical step has tiles of both
+    forms), and the sum kernel when it has items."""
+    return sum(1 + (0 < lt.n_kept[ci] < lt.n_tiles[ci]) + (lt.n_wt[ci] > 0)
+               for ci in range(lt.sweep.n_steps) if lt.sweep.n_rows[ci] > 0)
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -3413,6 +3548,13 @@ FIXED_ARITY = {"DP_GEN_CLASS_PRIOR": 1, "DP_GEN_LF_PRIOR": 1,
 DYADIC = (-1.0, -0.75, -0.5, -0.25, -0.125, 0.125, 0.25, 0.5, 0.75, 1.0)
 HUB_FACTORS = 1100       # items on the hub row: beyond LEARN_ITEM_TILE
 LEARN_ITEM_TILE = 1024   # kItemTile of csrc/itemgrid_learn.cu
+# factors of a cat or cat32 graph on its wide row: more evaluations than
+# the categorical learn kernel keeps for a row (ops/itemgrid.kept_terms),
+# so that its step is re-read while the graph's other steps are kept; a
+# code of arity 1 has one step (no variable neighbours another), which
+# WIDE_VARS variables cut into two tiles, the wide row's and a kept one
+WIDE_FACTORS = 20
+WIDE_VARS = 160
 DP_CANDIDATES = 200000   # phase 13 (d): PERF.md's LF cell, 10 LFs
 DP_LFS = 10
 DP_ARGV = ["-l", "20", "-i", "100", "-b", "10"]
@@ -3426,7 +3568,7 @@ DP_TOL_WEIGHT = 3 * 0.000259
 
 
 def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
-                 cards=None, dtype1=1 / 3, evidence=0.3):
+                 cards=None, dtype1=1 / 3, evidence=0.3, wide=0):
     """(weights, variables, factors, fmap) of a random graph whose
     factors take the codes ``codes`` (names of ``types.FACTORS``) in
     turn, with 4 dyadic weights (weight 0 fixed) and featureValue 1.
@@ -3435,7 +3577,8 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
     variable 0, evidence, in each of HUB_FACTORS factors (40
     variables); 'cat', 'cat32', 'cat128' cardinality 3 to 8, 32, 128
     (CAT_CARDS; one variable at 32 or 128; ``cards`` (lo, hi) in its
-    place), arity 1 to 4.
+    place), arity 1 to 4; given ``wide``, variable 0 takes the top
+    cardinality and is the last argument of the first ``wide`` factors.
     Codes of FIXED_ARITY take theirs. A share ``dtype1`` of the
     variables is dataType 1 (an item applies at its slot values only),
     a share ``evidence`` is evidence. UFO's first argument has a
@@ -3453,6 +3596,8 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
         card = rng.integers(lo, hi + 1, n)
         if kind != "cat":
             card[rng.integers(n)] = hi
+        if wide:
+            card[0] = hi
     else:
         card = np.full(n, 2)
     v = T.new_variables(n)
@@ -3477,6 +3622,8 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
             vid[0] = rng.choice(np.flatnonzero(card <= a + 1))
         if kind == "hub":
             vid[rng.integers(a)] = 0
+        if i < wide:
+            vid[-1] = 0
         arities.append(a)
         vids.append(vid)
     f = T.new_factors(nf)
@@ -3564,11 +3711,16 @@ def dp_graph(candidates, n_lf, seed):
 def factor_fixtures_of(name, kinds=FACTOR_KINDS):
     """Phase 13 (a)'s graphs of factor code ``name`` alone: (graph name,
     (name,), (w, v, f, fm)) in every kind of ``kinds`` that takes it (a13
-    only where the arity is free), each from its own seed."""
+    only where the arity is free), each from its own seed; cat and cat32
+    with a wide row (WIDE_FACTORS; WIDE_VARS variables at arity 1)."""
     from numbskull_tpu_torch import types as T
     i = list(T.FACTORS).index(name)
+    wide = {"cat": WIDE_FACTORS, "cat32": WIDE_FACTORS}
+    n_vars = WIDE_VARS if FIXED_ARITY.get(name) == 1 else None
     return [("%s/%s" % (name, kind), (name,),
-             random_graph((name,), kind, 1000 + 10 * i + j))
+             random_graph((name,), kind, 1000 + 10 * i + j,
+                          n_vars=n_vars if kind in wide else None,
+                          wide=wide.get(kind, 0)))
             for j, kind in enumerate(FACTOR_KINDS)
             if kind in kinds and not (kind == "a13" and name in FIXED_ARITY)]
 
@@ -3640,21 +3792,29 @@ def learn_paths(lt):
     """{factor code: {learn step kernel}} of learn tables ``lt``: the
     choice of nsx_learn_step (at kmax 2 learn_item_kernel when the
     step's longest piece fits LEARN_ITEM_TILE, else learn_step_kernel;
-    learn_cat_kernel<KMAX> above)."""
+    above it learn_kept_kernel<KMAX> for the codes of the step's kept
+    tiles, learn_cat_kernel<KMAX> for those of its others)."""
+    import numpy as np
     t = lt.sweep
     out = {}
     for ci in range(t.n_steps):
         if t.n_rows[ci] == 0:
             continue
-        if t.kmax > 2:
-            path = "learn_cat<%d>" % next(k for k in (8, 32, 128)
-                                          if t.kmax <= k)
-        elif lt.smem_items[ci] <= LEARN_ITEM_TILE:
-            path = "learn_item"
-        else:
-            path = "learn_step"
-        for c in _step_codes(t, ci):
-            out.setdefault(c, set()).add(path)
+        if t.kmax <= 2:
+            path = ("learn_item" if lt.smem_items[ci] <= LEARN_ITEM_TILE
+                    else "learn_step")
+            for c in _step_codes(t, ci):
+                out.setdefault(c, set()).add(path)
+            continue
+        k = next(k for k in (8, 32, 128) if t.kmax <= k)
+        o = lt.host[ci]
+        ftype = np.asarray(t.plans[ci].it_ftype)[t.item_index[ci]]
+        ri = t.row_item[t.row0[ci]:t.row0[ci] + t.n_rows[ci] + 1].cpu()
+        ri = (ri - ri[0]).numpy()[np.append(o["tl_r0"], t.n_rows[ci])]
+        for a, b, kept in zip(ri[:-1], ri[1:], o["tl_kept"]):
+            path = "learn_%s<%d>" % ("kept" if kept else "cat", k)
+            for c in np.unique(ftype[a:b]).tolist():
+                out.setdefault(c, set()).add(path)
     return out
 
 
@@ -3665,7 +3825,10 @@ def required_paths(name):
     learn kernel; in the item kernel, a code of free arity runs 1 lane,
     2 to 4 and 8 or more lanes an item (FAST for ops/itemgrid.FAST_TYPES,
     and not FAST in the mixed graph), a code of fixed arity the lanes
-    its arity gives."""
+    its arity gives; both categorical learn kernels at KMAX 8 and 32 (the
+    cat and cat32 graphs' wide rows, WIDE_FACTORS), the re-read one at
+    128 (a row at card 128 is too wide to keep; phase 2's kept_mixed
+    graphs keep rows at KMAX 128)."""
     from numbskull_tpu_torch import types as T
     from numbskull_tpu_torch.ops.itemgrid import FAST_TYPES, sweep_lanes
     need = [("cat<%d>" % k, lambda p, k=k: p == ("cat", k))
@@ -3686,7 +3849,8 @@ def required_paths(name):
             need.append(("item not FAST",
                          lambda p: p[0] == "item" and not p[2]))
     return need, ("learn_item", "learn_step", "learn_cat<8>",
-                  "learn_cat<32>", "learn_cat<128>")
+                  "learn_kept<8>", "learn_cat<32>", "learn_kept<32>",
+                  "learn_cat<128>")
 
 
 def _potentials_vs_golden(torch, cg, model, seed):
@@ -4224,8 +4388,12 @@ def main():
     if sys.argv[1:] == ["factors"]:   # phases 1 and 13 only
         finish(torch, card, factors_records(phase_factors(torch, card)))
         return
+    if sys.argv[1:] == ["kept"]:      # phases 1 and 2 (the two forms)
+        phase_kept_form(torch)
+        finish(torch, card, [])
+        return
     if sys.argv[1:] == ["categorical"]:   # 1, 2 (categorical edges), 13
-        err = phase_cat_edges(torch)
+        err = max(phase_cat_edges(torch), phase_kept_form(torch))
         recs = factors_records(phase_factors(torch, card))
         for rec in recs:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -4241,7 +4409,8 @@ def main():
         finish(torch, card, [stencil_record(launches, worst_s, lattice)])
         return
     worst = phase_compare(torch)
-    worst_l = max(phase_learn_compare(torch), phase_cat_edges(torch))
+    worst_l = max(phase_learn_compare(torch), phase_cat_edges(torch),
+                  phase_kept_form(torch))
     worst_s = phase_stencil_compare(torch)
     # phase 13 next, while the process holds little: its plain versions
     # run many small tensor ops, which ran a third slower after phase 12

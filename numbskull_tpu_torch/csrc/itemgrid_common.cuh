@@ -432,7 +432,9 @@ __device__ int draw_vec(float* pot, int card, int K, float u01) {
 // The warp needs no other warp: only __syncwarp orders its phases, so
 // the warps of a block run their chunks independently, each hiding the
 // others' loads. NC = 2 does it for two value arrays (the free and the
-// clamped chain of learning) from one read.
+// clamped chain of learning) from one read; KEEP (learning's kept form)
+// keeps a run's evaluations at every candidate for the gradient: there
+// (3) stores e itself and (4) forms w x e (the same bits).
 constexpr int kCatWarps = 4;        // warps of a block
 constexpr int kCatThreads = 32 * kCatWarps;
 constexpr int kCatArgs = 128;       // argument values a chunk stages
@@ -443,8 +445,8 @@ constexpr int kCatPotFloats = 4224; // potentials a block holds, per chain
 // that one lane per row reads them without bank conflicts
 __host__ __device__ constexpr int cat_stride(int K) { return K | 1; }
 
-// a warp's shared memory
-template <int NC>
+// a warp's shared memory; TERMS (at least kCatTerms) terms a chain
+template <int NC, int TERMS = kCatTerms>
 struct CatWarp {
   int ri[33];               // its rows' first items, from its first row's
   int card[32];             // the rows' cardinalities
@@ -456,7 +458,7 @@ struct CatWarp {
   int row[32];              //   row
   int val[NC][kCatArgs];    // staged argument values; -1: the row's own
   int ec[kCatArgs];         // their eq << 16 | card
-  float term[NC][kCatTerms];
+  float term[NC][TERMS];
 };
 
 // inclusive prefix sums of (x, y) over the warp's lanes in order
@@ -493,10 +495,10 @@ __device__ __forceinline__ int sparse_k(int m, int s, int K) {
 
 // (2): arguments [A0, A0 + na) of the tables, side by side into
 // sh.val (-1 for the row's own) and sh.ec; then __syncwarp
-template <int NC>
+template <int NC, int TERMS>
 __device__ __forceinline__ void cat_stage(const Tables& t, const int32_t* xa,
                                           const int32_t* xb, int A0, int na,
-                                          CatWarp<NC>& sh) {
+                                          CatWarp<NC, TERMS>& sh) {
   for (int a = threadIdx.x & 31; a < na; a += 32) {
     const int v = arg_ref(t, A0 + a);
     sh.val[0][a] = v < 0 ? -1 : xa[v];
@@ -509,10 +511,11 @@ __device__ __forceinline__ void cat_stage(const Tables& t, const int32_t* xa,
 // item j of a chunk at candidates ka (values of chain a) and kb (chain
 // b, NC = 2), from its staged values (or, not staged, from the tables at
 // A0): the factor values (ea, eb)
-template <int NC>
+template <int NC, int TERMS>
 __device__ __forceinline__ void cat_eval(const Tables& t, const int32_t* xa,
                                          const int32_t* xb,
-                                         const CatWarp<NC>& sh, bool staged,
+                                         const CatWarp<NC, TERMS>& sh,
+                                         bool staged,
                                          int A0, int j, int ka, int kb,
                                          float& ea, float& eb) {
   const int ftype = meta_ftype(sh.meta[j]), ar = sh.arity[j];
@@ -559,15 +562,26 @@ __device__ __forceinline__ void cat_eval(const Tables& t, const int32_t* xa,
 // k < K, from values xa (and xb, NC = 2), added into
 // pa[row * cat_stride(K) + k] (and pb), which the caller has zeroed (and
 // ordered by __syncwarp). Every lane of the warp calls it; it returns
-// after __syncwarp with sh.card holding the rows' cardinalities.
-template <int NC>
+// after __syncwarp with sh.ri and sh.card holding the rows' first items
+// (from the first row's) and cardinalities. KEEP (NC = 2): the chunks'
+// terms follow one another in sh.term from index term0 on, so that the
+// run's items' evaluations at every candidate they were evaluated at
+// stay there for the caller, item after item in term order (the caller
+// sees that they fit TERMS), and item j of the run leaves its row
+// (bits 0-4), its first term (5-14) and its d1 (15-22) and d2 (23-30) in
+// info[j] and its dense (bit 0) and NOOP (bit 1) bits in flags[j].
+template <int NC, bool KEEP = false, int TERMS>
 __device__ void cat_potentials(const Tables& t, const float* weights,
                                const int32_t* xa, const int32_t* xb, int r0,
                                int nr, int K, float* pa, float* pb,
-                               CatWarp<NC>& sh) {
+                               CatWarp<NC, TERMS>& sh, int term0 = 0,
+                               uint32_t* info = nullptr,
+                               uint8_t* flags = nullptr) {
+  static_assert(NC == 2 || !KEEP, "only learning keeps its evaluations");
   const int lane = threadIdx.x & 31;
   const int S = cat_stride(K);
   const int T0 = t.row_item[r0];
+  [[maybe_unused]] int tb = term0;  // KEEP: the chunk's first term
   for (int i = lane; i <= nr; i += 32) sh.ri[i] = t.row_item[r0 + i] - T0;
   if (lane < nr) sh.card[lane] = t.row_card[r0 + lane];
   __syncwarp();
@@ -604,6 +618,15 @@ __device__ void cat_potentials(const Tables& t, const float* weights,
       sh.tend[lane] = pre.x;
       sh.row[lane] = row;
     }
+    if constexpr (KEEP) {
+      if (lane < n) {
+        info[c0 + lane] = static_cast<uint32_t>(row) |
+                          static_cast<uint32_t>(tb + pre.x - nt) << 5 |
+                          static_cast<uint32_t>(m & 0xFFFF00) << 7;
+        flags[c0 + lane] = static_cast<uint8_t>(meta_dense(m) |
+                                                (meta_ftype(m) < 0) << 1);
+      }
+    }
     __syncwarp();
     // (2) the chunk's argument values, side by side
     const bool staged = nf > 0;
@@ -616,13 +639,18 @@ __device__ void cat_potentials(const Tables& t, const float* weights,
     if (const int j = lane / L; j < n) {
       const int mj = sh.meta[j];
       const int t0 = j ? sh.tend[j - 1] : 0, nt_j = sh.tend[j] - t0;
-      const float wj = sh.w[j];
+      [[maybe_unused]] const float wj = sh.w[j];  // not KEEP
       for (int s = lane % L; s < nt_j; s += L) {
         const int k = meta_dense(mj) ? s : sparse_k(mj, s, K);
         float ea, eb;
         cat_eval<NC>(t, xa, xb, sh, staged, A0, j, k, k, ea, eb);
-        sh.term[0][t0 + s] = __fmul_rn(wj, ea);
-        if constexpr (NC == 2) sh.term[1][t0 + s] = __fmul_rn(wj, eb);
+        if constexpr (KEEP) {
+          sh.term[0][tb + t0 + s] = ea;
+          sh.term[1][tb + t0 + s] = eb;
+        } else {
+          sh.term[0][t0 + s] = __fmul_rn(wj, ea);
+          if constexpr (NC == 2) sh.term[1][t0 + s] = __fmul_rn(wj, eb);
+        }
       }
     }
     __syncwarp();
@@ -648,14 +676,22 @@ __device__ void cat_potentials(const Tables& t, const float* weights,
           idx = meta_d1(mj) < K ? 1 : 0;
         }
         if (idx >= 0) {
-          acc[0] = __fadd_rn(acc[0], sh.term[0][t0 + idx]);
-          if constexpr (NC == 2)
-            acc[1] = __fadd_rn(acc[1], sh.term[1][t0 + idx]);
+          if constexpr (KEEP) {
+            const float wj = sh.w[j];
+            const int ti = tb + t0 + idx;
+            acc[0] = __fadd_rn(acc[0], __fmul_rn(wj, sh.term[0][ti]));
+            acc[1] = __fadd_rn(acc[1], __fmul_rn(wj, sh.term[1][ti]));
+          } else {
+            acc[0] = __fadd_rn(acc[0], sh.term[0][t0 + idx]);
+            if constexpr (NC == 2)
+              acc[1] = __fadd_rn(acc[1], sh.term[1][t0 + idx]);
+          }
         }
       }
       pa[r * S + k] = acc[0];
       if constexpr (NC == 2) pb[r * S + k] = acc[1];
     }
+    if constexpr (KEEP) tb += sh.tend[n - 1];
     __syncwarp();  // the next chunk reuses the chunk's shared memory
     c0 += n;
   }

@@ -14,10 +14,13 @@
 // TPU kernel (itemgrid_pallas.py:363). The burn-in of the free chain runs
 // the sweep kernel.
 //
-// How: two launches on one stream per (epoch, color).
+// How: two launches on one stream per (epoch, color), three where a
+// categorical step has tiles of both forms.
 //   step kernel        learn_item_kernel at KMAX 2 (learn_step_kernel
 //                      for a tile of more than kItemTile items),
-//                      learn_cat_kernel at KMAX 8, 32, 128 (see below):
+//                      learn_cat_kernel and learn_kept_kernel at KMAX 8,
+//                      32, 128, for the step's tiles of the re-read and
+//                      of the kept form (see below):
 //                      one block of kTileRows threads per tile, a run of
 //                      at most kTileRows of the color's rows whose items
 //                      fit the shared-memory budget
@@ -64,16 +67,28 @@
 // evaluated again. That kernel is held to 64 registers, 8 blocks an SM.
 // A KMAX-2 tile of more items (a row of more than kItemTile) runs
 // learn_step_kernel, one thread per row, which reads its items a second
-// time for the gradient. At KMAX 8, 32 and 128 learn_cat_kernel runs the
-// tile's items in parallel twice: for both chains' potentials through
+// time for the gradient. At KMAX 8, 32 and 128 the categorical kernels
+// run the tile's items in parallel for both chains' potentials through
 // cat_potentials (itemgrid_common.cuh; every candidate the dense / d1 /
 // d2 rule keeps evaluated from one read of the item's arguments for both
-// chains, the terms added per (row, candidate) in item order), and for
-// the gradient, each item evaluated at the two drawn values from one more
-// read of its arguments (a tile's evaluations at every candidate do not
-// fit shared memory, so none is kept). The gradients never leave shared
-// memory: per step the partials are 8 B per (tile, weight), and the sum
-// kernel reads them once.
+// chains, the terms added per (row, candidate) in item order). A tile of
+// one piece whose every row's evaluations and potentials take at most a
+// quarter of a warp's terms (kept_terms: DP and LF rows, narrow rows at
+// low cards) is in the kept form: each warp walks its rows in runs that
+// fit, keeps the run's evaluations at every candidate beside its
+// potentials, draws, and takes each item's gradient from the evaluations
+// kept at the two drawn values (kept_gradients: the same function of the
+// same inputs; an item not evaluated at a drawn value is evaluated again
+// from the tables, as above). Any other tile (a row wider than that, or
+// a row in pieces) is re-read: its potentials in the dynamic shared
+// memory, and after every row has drawn each item evaluated at the two
+// drawn values from one more read of its arguments (cat_gradients). The
+// host marks each tile's form in the tables (tl_kept, from
+// ops/itemgrid.kept_tiles); learn_kept_kernel takes the kept tiles and
+// learn_cat_kernel the others, each launched over the step where it has
+// tiles, and a block of the other form's tile returns at once. The
+// gradients never leave shared memory: per step the partials are 8 B per
+// (tile, weight), and the sum kernel reads them once.
 //
 // Graph-sharded learning (ops/itemgrid_mc.py, the counterpart of the
 // TPU's multi-chip learn kernel, itemgrid_pallas.py:3348) runs the step
@@ -145,6 +160,8 @@ struct Order {
   const int32_t* gr_len;   // (NG) its items
   const int32_t* gr_slot;  // (NG) its partial slot
   const int32_t* perm;     // piece-local items, by (piece, weight, item)
+  const int32_t* tl_kept;  // (NT) 1: the tile is in the kept form; null
+                           // where every tile is the launched kernel's
   float* part_g;           // (NG) partial gradient sums, by slot
   int32_t* part_n;         // (NG) partial counts
   int tile0;               // the step's first tile
@@ -578,17 +595,19 @@ __host__ __device__ constexpr int cat_pot_rows(int K) {
              : kTileRows;
 }
 
-// KMAX 8, 32, 128: the tile's rows, cat_pot_rows at a time, each warp a
-// run of them (warp_rows), take both chains' potentials from
-// cat_potentials (items in parallel, each item's arguments read once for
-// the two chains and every candidate) into shared memory, and one lane
-// per row draws both chains (draw_row, as before). Then the gradient
-// pass runs each piece's items in parallel again, a quarter a warp
-// (cat_gradients: each item evaluated at the two drawn values from one
-// more staged read of its arguments), and piece_sums as before: the
-// tiles, pieces and sum order of build_learn_tables are unchanged. The
-// potentials and the gradients use the same dynamic shared memory in
-// turn
+// KMAX 8, 32, 128, the step's tiles in the re-read form (a kept tile is
+// learn_kept_kernel's: the block returns; tl_kept is null in a step with
+// none): the tile's rows, cat_pot_rows
+// at a time, each warp a run of them (warp_rows), take both chains'
+// potentials from cat_potentials (items in parallel, each item's
+// arguments read once for the two chains and every candidate) into
+// shared memory, and one lane per row draws both chains (draw_row, as
+// before). Then the gradient pass runs each piece's items in parallel
+// again, a quarter a warp (cat_gradients: each item evaluated at the two
+// drawn values from one more staged read of its arguments), and
+// piece_sums as before: the tiles, pieces and sum order of
+// build_learn_tables are unchanged. The potentials and the gradients use
+// the same dynamic shared memory in turn
 template <int KMAX>
 __global__ void __launch_bounds__(kTileRows, 4)
     learn_cat_kernel(const Tables t, const LearnStep p, const Order o) {
@@ -598,9 +617,10 @@ __global__ void __launch_bounds__(kTileRows, 4)
   __shared__ int s_rn[kTileRows];
   __shared__ int s_ri[kTileRows + 1], s_pv[kTileRows], s_ev[kTileRows];
   __shared__ bool s_lrn[kTileRows];
+  const int tile = o.tile0 + blockIdx.x;
+  if (o.tl_kept != nullptr && o.tl_kept[tile]) return;
   const int tid = threadIdx.x, lane = tid & 31;
   CatWarp<2>& w = sh[tid >> 5];
-  const int tile = o.tile0 + blockIdx.x;
   const int tr0 = o.tl_r0[tile], tr1 = o.tl_r0[tile + 1], nr = tr1 - tr0;
   const int K = p.kmax, S = cat_stride(K), rows = cat_pot_rows(K);
   float* pot_p = reinterpret_cast<float*>(s_mem);
@@ -648,6 +668,172 @@ __global__ void __launch_bounds__(kTileRows, 4)
     piece_sums(o, pc, P1 - P0, s_g, s_inc, s_rg, s_rn);
     __syncthreads();  // the next piece reuses the shared memory
   }
+}
+
+// terms a warp of the kept form holds, per chain: a run's potentials
+// and its items' evaluations at every candidate (ops/itemgrid.KEPT_TERMS)
+constexpr int kKeptTerms = 640;
+
+// what row r takes of a warp's kKeptTerms in the kept form: its
+// potentials' stride and a term for each candidate each of its items can
+// be evaluated at (a dense item one for each candidate below the row's
+// card and K, a sparse item at most two). ops/itemgrid.kept_terms counts
+// the same, and keeps a tile only where each of its rows takes at most a
+// quarter
+__device__ __forceinline__ int kept_terms(const Tables& t, int r, int K) {
+  const int items = min(t.row_item[r + 1] - t.row_item[r], kKeptTerms);
+  return items * max(min(t.row_card[r], K), 2) + cat_stride(K);
+}
+
+// the index of candidate k among the terms of an item (dense: its nt
+// terms; sparse: at d1 and d2), in cat_potentials' term order, or -1
+// where it was not evaluated
+__device__ __forceinline__ int term_of(bool dense, int d1, int d2, int nt,
+                                       int K, int k) {
+  if (dense)
+    return static_cast<unsigned>(k) < static_cast<unsigned>(nt) ? k : -1;
+  if (k == d1 && d1 < K) return 0;
+  if (k == d2 && d2 < K) return d1 < K ? 1 : 0;
+  return -1;
+}
+
+// featureValues a lane of kept_gradients has in flight
+constexpr int kKeptBatch = 4;
+
+// the kept form's gradients of a run's n items (the first at I0) into
+// g / inc, where cat_potentials left each item's row, first term, d1
+// and d2 (info, the same words as g) and its dense and NOOP bits (inc):
+// lane l takes items l, l + 32, ..., kKeptBatch of them at a time, and
+// their evaluations at their rows' two drawn values from the warp's
+// terms of the free and the clamped chain. An item not evaluated at a
+// drawn value (a sparse item, a value outside its d1 / d2) is left
+// marked, and a second pass evaluates it at both from the tables
+// (eval_item2k: the same function of the same inputs). sh.card holds the
+// run's rows' cardinalities (cat_potentials); pv, ev, lrn their drawn
+// values and whether their items carry the gradient
+__device__ void kept_gradients(const Tables& t, const LearnStep& p, int I0,
+                               int n, int K,
+                               const CatWarp<2, kKeptTerms>& sh,
+                               const int* pv, const int* ev, const bool* lrn,
+                               float* g, uint8_t* inc) {
+  constexpr uint8_t kAgain = 3;  // counted, evaluated again below
+  const int lane = threadIdx.x & 31;
+  bool again = false;
+  for (int j0 = lane; j0 < n; j0 += 32 * kKeptBatch) {
+    float fv[kKeptBatch];
+#pragma unroll
+    for (int b = 0; b < kKeptBatch; ++b)
+      fv[b] = j0 + 32 * b < n ? p.it_fv[I0 + j0 + 32 * b] : 0.0f;
+#pragma unroll
+    for (int b = 0; b < kKeptBatch; ++b) {
+      const int j = j0 + 32 * b;
+      if (j >= n) break;
+      const uint32_t q = __float_as_uint(g[j]);
+      const int f = inc[j];
+      const int row = q & 31, off = (q >> 5) & 1023;
+      const int d1 = (q >> 15) & 255, d2 = (q >> 23) & 255;
+      const int p_val = pv[row], e_val = ev[row];
+      const bool hit =
+          d1 == e_val || d1 == p_val || d2 == e_val || d2 == p_val;
+      const bool counted = lrn[row] && !(f & 2) && ((f & 1) || hit);
+      float gj = 0.0f;
+      if (counted) {
+        const int nt = (f & 1) ? min(sh.card[row], K) : 0;
+        const int ip = term_of(f & 1, d1, d2, nt, K, p_val);
+        const int ie = term_of(f & 1, d1, d2, nt, K, e_val);
+        if (ip < 0 || ie < 0) {
+          inc[j] = kAgain;  // g[j] keeps the item's word
+          again = true;
+          continue;
+        }
+        gj = __fmul_rn(__fsub_rn(sh.term[0][off + ip], sh.term[1][off + ie]),
+                       fv[b]);
+      }
+      g[j] = gj;
+      inc[j] = counted ? 1 : 0;
+    }
+  }
+  if (!__any_sync(0xffffffffu, again)) return;
+  for (int j = lane; j < n; j += 32) {
+    if (inc[j] != kAgain) continue;
+    const int it = I0 + j, row = __float_as_uint(g[j]) & 31;
+    float ep, ee;
+    eval_item2k(t, p.xr, p.xer, item_ftype(t, it), item_arg0(t, it),
+                item_arity(t, it), pv[row], ev[row], ep, ee);
+    g[j] = __fmul_rn(__fsub_rn(ep, ee), p.it_fv[it]);
+    inc[j] = 1;
+  }
+}
+
+// KMAX 8, 32, 128, the step's tiles in the kept form (tl_kept, null in a
+// step with no other; the others are learn_cat_kernel's: the block
+// returns). Each warp takes a
+// quarter of the tile's rows (warp_rows) in runs of as many as fit
+// kKeptTerms: both chains' potentials and the run's evaluations at every
+// candidate in the warp's terms (cat_potentials<2, true>), one lane per
+// row draws both chains, and the run's items take their gradients from
+// the evaluations kept (kept_gradients). Then piece_sums as before (a
+// kept tile is one piece). Its warps keep 640 terms where
+// learn_cat_kernel's keep 512, and it is held to 96 registers, so that
+// DP tiles (3 KB of dynamic shared memory) run 5 blocks an SM
+template <int KMAX>
+__global__ void __launch_bounds__(kTileRows, 5)
+    learn_kept_kernel(const Tables t, const LearnStep p, const Order o) {
+  extern __shared__ float4 s_mem[];
+  __shared__ CatWarp<2, kKeptTerms> sh[kCatWarps];
+  __shared__ float s_rg[kTileRows];
+  __shared__ int s_rn[kTileRows];
+  __shared__ int s_pv[kTileRows], s_ev[kTileRows];
+  __shared__ bool s_lrn[kTileRows];
+  const int tile = o.tile0 + blockIdx.x;
+  if (o.tl_kept != nullptr && !o.tl_kept[tile]) return;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tr0 = o.tl_r0[tile], tr1 = o.tl_r0[tile + 1], nr = tr1 - tr0;
+  const int pc0 = o.tl_pc0[tile], npc = o.tl_pc0[tile + 1] - pc0;
+  const int K = p.kmax, S = cat_stride(K);
+  // s_pv holds each row's kept_terms until it draws
+  if (tid < nr) s_pv[tid] = kept_terms(t, tr0 + tid, K);
+  __syncthreads();
+  CatWarp<2, kKeptTerms>& w = sh[tid >> 5];
+  float* s_g = reinterpret_cast<float*>(s_mem);
+  uint8_t* s_inc = reinterpret_cast<uint8_t*>(s_g + o.smem_items);
+  const int P0 = t.row_item[tr0];
+  int first, wr;
+  warp_rows(nr, first, wr);
+  for (int r = first, wn; r < first + wr; r += wn) {
+    // the rows whose terms fit (the first always does)
+    const int need =
+        lane < first + wr - r ? s_pv[r + lane] : kKeptTerms + 1;
+    wn = __popc(__ballot_sync(
+        0xffffffffu, warp_scan2(make_int2(need, 0)).x <= kKeptTerms));
+    const int I0 = t.row_item[tr0 + r] - P0;  // local to the tile
+    for (int q = lane; q < wn * S; q += 32) {
+      w.term[0][q] = 0.0f;
+      w.term[1][q] = 0.0f;
+    }
+    __syncwarp();
+    cat_potentials<2, true>(t, p.weights, p.xr, p.xer, tr0 + r, wn, K,
+                            w.term[0], w.term[1], w, wn * S,
+                            reinterpret_cast<uint32_t*>(s_g) + I0,
+                            s_inc + I0);
+    if (lane < wn) {
+      int pv, ev;
+      bool lrn;
+      draw_row<KMAX>(t, p, tr0 + r + lane, w.card[lane],
+                     w.term[0] + lane * S, w.term[1] + lane * S, pv, ev,
+                     lrn);
+      s_pv[r + lane] = pv;
+      s_ev[r + lane] = ev;
+      s_lrn[r + lane] = lrn;
+    }
+    __syncwarp();
+    kept_gradients(t, p, P0 + I0, w.ri[wn], K, w, s_pv + r, s_ev + r,
+                   s_lrn + r, s_g + I0, s_inc + I0);
+    __syncwarp();  // the next run reuses the warp's terms
+  }
+  __syncthreads();  // every item's gradient in s_g / s_inc
+  if (npc == 1)
+    piece_sums(o, pc0, t.row_item[tr1] - P0, s_g, s_inc, s_rg, s_rn);
 }
 
 struct Update {
@@ -753,12 +939,26 @@ __global__ void __launch_bounds__(128)
   w[wid] = apply_weight(w[wid], g, n, wid, u);
 }
 
+// a categorical kernel (learn_cat_kernel for the step's re-read tiles,
+// learn_kept_kernel for its kept ones): static and dynamic shared memory
+// together pass 48 KB
+template <typename Kernel>
+cudaError_t launch_cat(Kernel kernel, const Tables& t, const LearnStep& p,
+                       const Order& o, int n_tiles, size_t smem,
+                       cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+  return cudaSuccess;
+}
+
 // shared memory per item: (gradient, counted), and on the item path
 // also both chains' evaluations, the weight, the slot flags and the row;
-// the categorical kernel's potentials share it
+// the categorical kernels' potentials share it
 template <int KMAX>
 cudaError_t launch_step(const Tables& t, const LearnStep& p, const Order& o,
-                        int n_tiles, cudaStream_t stream) {
+                        int n_tiles, bool kept, cudaStream_t stream) {
   if constexpr (KMAX == 2) {
     const bool items = o.smem_items <= kItemTile;
     const size_t smem =
@@ -772,12 +972,12 @@ cudaError_t launch_step(const Tables& t, const LearnStep& p, const Order& o,
                         static_cast<size_t>(cat_stride(p.kmax));
     const size_t smem =
         (std::max(pots, static_cast<size_t>(o.smem_items) * 5) + 15) & ~15;
-    // static and dynamic shared memory together pass 48 KB
-    const cudaError_t attr = cudaFuncSetAttribute(
-        learn_cat_kernel<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (attr != cudaSuccess) return attr;
-    learn_cat_kernel<KMAX><<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
+    const cudaError_t e =
+        kept ? launch_cat(learn_kept_kernel<KMAX>, t, p, o, n_tiles, smem,
+                          stream)
+             : launch_cat(learn_cat_kernel<KMAX>, t, p, o, n_tiles, smem,
+                          stream);
+    if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
 }
@@ -800,12 +1000,20 @@ const void* const kKernels[] = {
     reinterpret_cast<const void*>(learn_cat_kernel<32>),
     reinterpret_cast<const void*>(learn_cat_kernel<128>),
     reinterpret_cast<const void*>(learn_sum_kernel),
-    reinterpret_cast<const void*>(learn_apply_kernel)};
+    reinterpret_cast<const void*>(learn_apply_kernel),
+    reinterpret_cast<const void*>(learn_kept_kernel<8>),
+    reinterpret_cast<const void*>(learn_kept_kernel<32>),
+    reinterpret_cast<const void*>(learn_kept_kernel<128>)};
 
 }  // namespace
 
 // tile_rows and sum_width must equal the kernels' kTileRows and
-// kSumWidth (the tables were cut for them); anything else is refused
+// kSumWidth (the tables were cut for them); anything else is refused.
+// Above kmax 2, kept launches learn_kept_kernel, which takes the step's
+// tiles that tl_kept marks (ops/itemgrid.kept_tiles), and 0
+// learn_cat_kernel, which takes the others: a step with tiles of both
+// forms is two calls. Where every tile of the step takes one form,
+// tl_kept is null, and no block reads it
 extern "C" int nsx_learn_step(
     const int32_t* row_vid, const int32_t* row_card, const int32_t* row_upos,
     const int8_t* row_flags, const int32_t* row_item, const int32_t* it_arg,
@@ -816,9 +1024,9 @@ extern "C" int nsx_learn_step(
     const float* ext_e, const int32_t* tl_r0, const int32_t* tl_pc0,
     const int32_t* pc_g0, const int32_t* pc_perm, const int32_t* gr_off,
     const int32_t* gr_len, const int32_t* gr_slot, const int32_t* perm,
-    float* part_g, int32_t* part_n, int row0, int tile0, int n_tiles,
-    int tile_rows, int piece_items, int smem_items, int kmax, int seed,
-    int salt16, int lrn_all, int kext, void* stream) {
+    const int32_t* tl_kept, float* part_g, int32_t* part_n, int row0,
+    int tile0, int n_tiles, int tile_rows, int piece_items, int smem_items, int kmax, int seed,
+    int salt16, int lrn_all, int kext, int kept, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if ((ext_p != nullptr || ext_e != nullptr) && kext < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -831,17 +1039,20 @@ extern "C" int nsx_learn_step(
   const LearnStep p{weights, it_fv, x, xe, xr, xer, send, send_e, ext_p,
                     ext_e, row0, kmax, static_cast<uint32_t>(seed),
                     static_cast<uint32_t>(salt16), lrn_all, kext};
-  const Order o{tl_r0,  tl_pc0,  pc_g0, pc_perm, gr_off,
-                gr_len, gr_slot, perm,  part_g,  part_n,
-                tile0,  piece_items, smem_items};
+  const Order o{tl_r0, tl_pc0,  pc_g0,   pc_perm,     gr_off,
+                gr_len, gr_slot, perm,    tl_kept,     part_g,
+                part_n, tile0,   piece_items, smem_items};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (kmax <= 2) return static_cast<int>(launch_step<2>(t, p, o, n_tiles, s));
-  if (kmax <= 8) return static_cast<int>(launch_step<8>(t, p, o, n_tiles, s));
+  const bool k = kept != 0;
+  if (kmax <= 2)
+    return static_cast<int>(launch_step<2>(t, p, o, n_tiles, k, s));
+  if (kmax <= 8)
+    return static_cast<int>(launch_step<8>(t, p, o, n_tiles, k, s));
   if (kmax <= 32)
-    return static_cast<int>(launch_step<32>(t, p, o, n_tiles, s));
+    return static_cast<int>(launch_step<32>(t, p, o, n_tiles, k, s));
   if (kmax <= 128)
-    return static_cast<int>(launch_step<128>(t, p, o, n_tiles, s));
+    return static_cast<int>(launch_step<128>(t, p, o, n_tiles, k, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -900,11 +1111,29 @@ extern "C" int nsx_learn_apply(const int32_t* payload, const int8_t* w_fixed,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the blocks of kernel `which` of kKernels (numbered as below) that one
+// SM holds at `threads` threads a block and `smem` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
+// opt-in launch_step gives the categorical kernels)
+extern "C" int nsx_learn_occupancy(int which, int threads, int smem,
+                                   int* blocks) {
+  constexpr int n = sizeof(kKernels) / sizeof(kKernels[0]);
+  if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);
+  if ((which >= 2 && which <= 4) || which >= 7) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kKernels[which], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kKernels[which], threads, static_cast<size_t>(smem)));
+}
+
 // the registers a thread and the local memory a thread (spills and local
 // arrays) of kernel `which` of kKernels (0: learn_item_kernel, 1:
 // learn_step_kernel, 2-4: learn_cat_kernel at KMAX 8, 32, 128, 5:
-// learn_sum_kernel, 6: learn_apply_kernel), as the loaded module reports
-// them
+// learn_sum_kernel, 6: learn_apply_kernel, 7-9: learn_kept_kernel at KMAX
+// 8, 32, 128), as the loaded module reports them
 extern "C" int nsx_learn_attrs(int which, int* regs, int* local_bytes) {
   constexpr int n = sizeof(kKernels) / sizeof(kKernels[0]);
   if (which < 0 || which >= n) return static_cast<int>(cudaErrorInvalidValue);

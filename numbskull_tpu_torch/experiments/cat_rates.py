@@ -167,7 +167,7 @@ def attrs() -> list:
         fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int,
                                                  ctypes.c_void_p,
                                                  ctypes.c_void_p]
-        for which in range(7):
+        for which in range(10):   # an earlier library has 7
             regs, local = ctypes.c_int(), ctypes.c_int()
             if fn(which, ctypes.byref(regs), ctypes.byref(local)) == 0:
                 out.append(("learn attrs %d" % which, regs.value,

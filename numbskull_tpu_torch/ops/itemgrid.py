@@ -76,7 +76,7 @@ import numpy as np
 import torch
 
 from numbskull_tpu_torch.compile import CompiledGraph
-from numbskull_tpu_torch.observability import span
+from numbskull_tpu_torch.observability import metrics, span
 from numbskull_tpu_torch.ops.factor_eval import present_types_of
 from numbskull_tpu_torch.ops.gibbs import (LearnParams, color_potentials,
                                           eval_items_at, plan_tensors)
@@ -122,6 +122,11 @@ CAT_THREADS = 128
 CAT_ARGS = 128
 CAT_TERMS = 512
 CAT_POT_FLOATS = 4224
+# the categorical learn kernel's kept form: the terms a warp holds (a
+# run's potentials and evaluations), and the most a row takes of them
+# (kept_terms), a quarter, so that a run holds four rows or more
+KEPT_TERMS = 640
+KEPT_ROW_TERMS = KEPT_TERMS // 4
 
 # factor types whose value the sweep's item kernel reads from one fact of
 # the arguments (any 0, any 1, any unlike the first)
@@ -775,13 +780,14 @@ def _kernel_lib(name: str = "itemgrid_sweep"):
         elif name == "itemgrid_exchange":
             sigs = {"nsx_exchange_unpack": [P] * 5 + [I] * 6 + [P]}
         else:
-            sigs = {"nsx_learn_step": [P] * 30 + [I] * 11 + [P],
+            sigs = {"nsx_learn_step": [P] * 31 + [I] * 12 + [P],
                     "nsx_learn_sum": [P] * 7 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P],
                     "nsx_learn_partial": [P] * 7 + [I] * 5 + [P],
                     "nsx_learn_apply": [P] * 3 + [I] * 6 + [F] * 4 +
                     [I] * 2 + [P],
-                    "nsx_learn_attrs": [I, P, P]}
+                    "nsx_learn_attrs": [I, P, P],
+                    "nsx_learn_occupancy": [I, I, I, P]}
         for fn_name, argtypes in sigs.items():
             fn = getattr(lib, fn_name)
             fn.restype = ctypes.c_int
@@ -943,6 +949,8 @@ class LearnTables:
     gr_len: torch.Tensor       # (NG,) int32 items
     gr_slot: torch.Tensor      # (NG,) int32 partial slot
     perm: torch.Tensor         # (NL,) int32 piece-local items by weight
+    tl_kept: torch.Tensor      # (NT,) int32 1: the tile is in the kept form
+    #                            (kept_tiles)
     wt_wid: torch.Tensor       # (NW,) int32 weight id
     wt_p0: torch.Tensor        # (NW,) int32 first partial slot
     wt_np: torch.Tensor        # (NW,) int32 partial slots
@@ -954,14 +962,16 @@ class LearnTables:
     wt0: list                  # per step: first weight entry
     n_wt: list                 # per step: weight entries
     n_big: list                # per step: entries summed by a block
+    kept_items: list           # per step: items of its kept tiles
+    n_kept: list               # per step: kept tiles
     host: list                 # per step: its order tables, local to it
-    #                            (numpy, from _step_order)
+    #                            (numpy, from _step_order, and tl_kept)
     ptrs: dict = dataclasses.field(default_factory=dict)
     _plain: dict = dataclasses.field(default_factory=dict)
 
 
 _ORDER_FIELDS = ("tl_r0", "tl_pc0", "pc_g0", "pc_perm", "gr_off", "gr_len",
-                 "gr_slot", "perm", "part_g", "part_n")
+                 "gr_slot", "perm", "tl_kept", "part_g", "part_n")
 
 
 def _cut_tiles(counts: np.ndarray) -> np.ndarray:
@@ -1056,22 +1066,56 @@ def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
                 smem_items=int(plen.max()) if NP else 0)
 
 
+def kept_terms(counts, cards, kmax: int) -> np.ndarray:
+    """What each row of ``counts`` items and cardinality ``cards`` takes
+    of a categorical learn warp's KEPT_TERMS in the kept form
+    (``kept_terms`` of csrc/itemgrid_learn.cu): its potentials' stride and
+    a term for each candidate each item can be evaluated at, a dense item
+    one for each below the row's card and kmax, a sparse item at most
+    two."""
+    counts = np.minimum(np.asarray(counts, np.int64), KEPT_TERMS)
+    cards = np.minimum(np.asarray(cards, np.int64), kmax)
+    return counts * np.maximum(cards, 2) + cat_stride(kmax)
+
+
+def kept_tiles(o: dict, counts: np.ndarray, cards: np.ndarray,
+               kmax: int) -> np.ndarray:
+    """Which tiles of one step (order tables ``o`` from
+    :func:`_step_order`, rows of ``counts`` items and cardinality
+    ``cards``) the categorical learn step takes in the kept form, its
+    gradients from the evaluations its potential pass kept: above kmax 2,
+    a tile of at most one piece whose every row takes at most
+    KEPT_ROW_TERMS (:func:`kept_terms`). ``learn_kept_kernel`` takes
+    these tiles, ``learn_cat_kernel`` the others."""
+    ts = o["tl_r0"]
+    if kmax <= 2 or not len(ts):
+        return np.zeros(len(ts), bool)
+    fits = np.logical_and.reduceat(kept_terms(counts, cards, kmax) <=
+                                   KEPT_ROW_TERMS, ts)
+    pieces = np.diff(np.append(o["tl_pc0"], len(o["pc_start"])))
+    return fits & (pieces <= 1)
+
+
 def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
     """The learn tables of ``t`` on its device (see LearnTables)."""
     dev = t.device
     fv = [np.asarray(p.it_fv)[iv] for p, iv in zip(t.plans, t.item_index)]
     row_item = t.row_item.cpu().numpy().astype(np.int64)
+    row_card = t.row_card.cpu().numpy()
     parts = {k: [] for k in _ORDER_FIELDS[:-2] + ("wt_wid", "wt_p0",
                                                   "wt_np")}
     lists = {k: [] for k in ("tile0", "n_tiles", "smem_items", "wt0",
-                             "n_wt", "n_big")}
+                             "n_wt", "n_big", "kept_items", "n_kept")}
     nt = npc = ng = nl = nw = 0
     steps = []
     for ci in range(t.n_steps):
         lo, n = t.row0[ci], t.n_rows[ci]
         wl = np.asarray(t.plans[ci].it_wid)[t.item_index[ci]].astype(
             np.int64)
-        o = _step_order(np.diff(row_item[lo:lo + n + 1]), wl)
+        counts = np.diff(row_item[lo:lo + n + 1])
+        o = _step_order(counts, wl)
+        kept = o["tl_kept"] = kept_tiles(o, counts, row_card[lo:lo + n],
+                                         t.kmax)
         steps.append(o)
         parts["tl_r0"].append(lo + o["tl_r0"])
         parts["tl_pc0"].append(npc + o["tl_pc0"])
@@ -1082,12 +1126,16 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
         parts["gr_len"].append(o["gr_len"])
         parts["gr_slot"].append(ng + o["gr_slot"])
         parts["perm"].append(o["perm"])
+        parts["tl_kept"].append(kept)
         parts["wt_wid"].append(o["wt_wid"])
         parts["wt_p0"].append(ng + o["wt_p0"])
         parts["wt_np"].append(o["wt_np"])
         for k, v in (("tile0", nt), ("n_tiles", len(o["tl_r0"])),
                      ("smem_items", o["smem_items"]), ("wt0", nw),
-                     ("n_wt", len(o["wt_wid"])), ("n_big", o["n_big"])):
+                     ("n_wt", len(o["wt_wid"])), ("n_big", o["n_big"]),
+                     ("kept_items", int(np.add.reduceat(counts, o["tl_r0"])[
+                         kept].sum()) if kept.any() else 0),
+                     ("n_kept", int(kept.sum()))):
             lists[k].append(v)
         nt += len(o["tl_r0"])
         npc += len(o["pc_start"])
@@ -1443,7 +1491,8 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                        send_e=None, ext_p=None, ext_e=None) -> bool:
     """The step launch of one learn step on the current stream (both
     chains' draws, and each tile's gradient sums into the partial
-    slots); returns False, launching nothing, for a step with no rows. A
+    slots), two where a categorical step has tiles of both forms
+    (:func:`kept_tiles`); returns False, launching nothing, for a step with no rows. A
     conflicting step reads from snapshots of the chains. ``ext_p`` /
     ``ext_e`` (V, K'), of one width, add external potentials to the
     free / clamped chain before the draws."""
@@ -1467,15 +1516,26 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                          % t.device)
     p = lt.ptrs
     xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
-    _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_step(
-        *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
-        _ptr(xer), send_p, send_e_p, ext_pp, ext_ep,
-        *(p[k] for k in _ORDER_FIELDS), t.row0[ci], lt.tile0[ci],
-        lt.n_tiles[ci], TILE_ROWS, TILE_ITEMS, lt.smem_items[ci], t.kmax,
-        seed, salt16_of(epoch, ci), int(hs.learn_non_evidence), kext,
-        _stream(t.device)), "learn step kernel")
-    LEARN_LAUNCHES += 1
-    EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
+    # a launch for each form the step's tiles take (kept_tiles): each
+    # kernel takes its own tiles, which tl_kept marks where the step has
+    # both (null, no block reads it)
+    n_kept = lt.n_kept[ci]
+    order = [p[k] for k in _ORDER_FIELDS]
+    if not 0 < n_kept < lt.n_tiles[ci]:
+        order[_ORDER_FIELDS.index("tl_kept")] = None
+    for kept in [k for k, n in ((0, lt.n_tiles[ci] - n_kept), (1, n_kept))
+                 if n]:
+        _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_step(
+            *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
+            _ptr(xer), send_p, send_e_p, ext_pp, ext_ep,
+            *order, t.row0[ci], lt.tile0[ci],
+            lt.n_tiles[ci], TILE_ROWS, TILE_ITEMS, lt.smem_items[ci], t.kmax,
+            seed, salt16_of(epoch, ci), int(hs.learn_non_evidence), kext,
+            kept, _stream(t.device)), "learn step kernel")
+        LEARN_LAUNCHES += 1
+        EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
+    metrics.add("learn.kept_items", lt.kept_items[ci])
+    metrics.add("learn.items", len(t.item_index[ci]))
     return True
 
 
@@ -1488,8 +1548,9 @@ def _sum_ptrs(lt: LearnTables) -> tuple:
 def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
                   xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
                   hs: LearnStep, ext_p=None, ext_e=None) -> None:
-    """The two CUDA launches of one learn step on the current stream,
-    step and sum; a launch with no rows or weights to work on is skipped
+    """The CUDA launches of one learn step on the current stream, step
+    (two where a categorical step has tiles of both forms) and sum; a
+    launch with no rows or weights to work on is skipped
     and not counted."""
     global LEARN_LAUNCHES
     if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs,

@@ -12,13 +12,14 @@ each (row, candidate) of the rows a chunk touches adding its terms in
 item order. The kernels cannot run here, so
 ``cat_walk`` below writes that index arithmetic out, and these tests
 hold it: with the tiles the wrapper picks (``cat_tile_rows``; a learn
-tile's rows ``cat_pot_rows`` at a time), every row is drawn once, every
+tile's warps in runs, ``learn_runs``), every row is drawn once, every
 item is evaluated once at each candidate the dense / d1 / d2 rule keeps
 and at no other, each (row, candidate) adds exactly its own items'
 terms in item order, and no chunk outgrows its shared memory; the
-learn kernel's gradient pass gives every item of a piece one
-evaluation. Then a plain replay of that order
-(terms from ``eval_items_at``, added chunk by chunk) equals
+learn kernel's gradient pass takes every item once: in a kept run
+from the run's terms, which fit a warp's KEPT_TERMS beside the run's
+potentials, otherwise one evaluation per piece. Then a plain replay of
+that order (terms from ``eval_items_at``, added chunk by chunk) equals
 ``color_step_reference``'s potentials bit for bit, and its draws the
 plain version's, on phase 2's categorical fixtures and phase 13's cat
 graphs. ``chip_smoke.py`` holds the kernels to the plain versions on
@@ -100,23 +101,22 @@ def cat_walk(row_item, it_arg, it_meta, row_card, K, r0, nr):
 
 
 def _check_walk(row_item, it_arg, it_meta, row_card, K, row0, n_rows,
-                tiles):
-    """``tiles``: (first row, rows) of each block's potential pass."""
+                runs):
+    """``runs``: (first row, rows) of each warp's run of the potential
+    pass; returns the terms of each run's chunks."""
     drawn = np.zeros(n_rows, np.int64)
-    evaluated, added = {}, {}
-    for b0, bn in tiles:
-        assert 1 <= bn <= pig.CAT_THREADS
-        assert bn * pig.cat_stride(K) <= pig.CAT_POT_FLOATS
-        for r0, nr in warp_runs(b0, bn):
-            chunks, ev, ad = cat_walk(row_item, it_arg, it_meta, row_card,
-                                      K, r0, nr)
-            for c0, n, staged, na, nt in chunks:
-                assert 1 <= n <= pig.WARP and nt <= pig.CAT_TERMS
-                assert na <= pig.CAT_ARGS if staged else n == 1
-            for key, c in ev.items():
-                evaluated[key] = evaluated.get(key, 0) + c
-            added.update(ad)
-            drawn[r0 - row0:r0 - row0 + nr] += 1
+    evaluated, added, terms = {}, {}, []
+    for r0, nr in runs:
+        chunks, ev, ad = cat_walk(row_item, it_arg, it_meta, row_card, K,
+                                  r0, nr)
+        for c0, n, staged, na, nt in chunks:
+            assert 1 <= n <= pig.WARP and nt <= pig.CAT_TERMS
+            assert na <= pig.CAT_ARGS if staged else n == 1
+        terms.append(sum(c[4] for c in chunks))
+        for key, c in ev.items():
+            evaluated[key] = evaluated.get(key, 0) + c
+        added.update(ad)
+        drawn[r0 - row0:r0 - row0 + nr] += 1
     assert (drawn == 1).all()
     for i in range(n_rows):
         r = row0 + i
@@ -128,6 +128,47 @@ def _check_walk(row_item, it_arg, it_meta, row_card, K, row0, n_rows,
             for it in want:
                 assert evaluated.pop((it, k)) == 1
     assert not evaluated    # no candidate evaluated that no row adds
+    return terms
+
+
+def sweep_runs(tiles, K):
+    """The sweep's warps' runs: ``warp_runs`` of each block of
+    ``tiles`` (first row, rows), whose potentials fit CAT_POT_FLOATS."""
+    runs = []
+    for b0, bn in tiles:
+        assert 1 <= bn <= pig.CAT_THREADS
+        assert bn * pig.cat_stride(K) <= pig.CAT_POT_FLOATS
+        runs += warp_runs(b0, bn)
+    return runs
+
+
+def learn_runs(row_item, row_card, K, tiles):
+    """The categorical learn kernels' runs over a step's tiles (first
+    row, rows, kept): (first row, rows, kept) of every warp's run. A kept
+    tile (``kept_tiles``; ``learn_kept_kernel``): each warp's quarter
+    (``warp_rows``) in runs of the most rows (at most WARP) whose
+    ``kept_terms`` sum to at most KEPT_TERMS; any other tile
+    (``learn_cat_kernel``) ``cat_pot_rows`` rows at a time, each warp a
+    quarter of them."""
+    out = []
+    pr = pig.cat_pot_rows(K)
+    for a, bn, kept in tiles:
+        if not kept:
+            out += [(r0, nr, False) for s in range(a, a + bn, pr)
+                    for r0, nr in warp_runs(s, min(pr, a + bn - s))]
+            continue
+        need = pig.kept_terms(np.diff(row_item[a:a + bn + 1]),
+                              row_card[a:a + bn], K)
+        for r0, wr in warp_runs(a, bn):
+            r = r0
+            while r < r0 + wr:
+                cum = np.cumsum(need[r - a:r - a + min(pig.WARP,
+                                                       r0 + wr - r)])
+                wn = int((cum <= pig.KEPT_TERMS).sum())
+                assert wn >= 1
+                out.append((r, wn, True))
+                r += wn
+    return out
 
 
 def _step(rng, n_rows, K, long_row=None, dense=0.7):
@@ -172,7 +213,8 @@ def test_sweep_tiles_cover_every_row_item_and_candidate_once(case):
         rng, n, K, long_row, *case[3:])
     tr = pig.cat_tile_rows(n_rows, int(row_item[-1] - row_item[row0]), K)
     tiles = [(row0 + i, min(tr, n_rows - i)) for i in range(0, n_rows, tr)]
-    _check_walk(row_item, it_arg, it_meta, row_card, K, row0, n_rows, tiles)
+    _check_walk(row_item, it_arg, it_meta, row_card, K, row0, n_rows,
+                sweep_runs(tiles, K))
 
 
 @pytest.mark.parametrize("case", STEPS[:14], ids=[
@@ -180,23 +222,45 @@ def test_sweep_tiles_cover_every_row_item_and_candidate_once(case):
     for c in STEPS[:14]])
 def test_learn_tiles_cover_every_row_item_and_candidate_once(case):
     """A learn step's tiles (``build_learn_tables``' cut, unchanged),
-    each taken ``cat_pot_rows`` rows at a time; every item's gradient
-    taken once."""
+    each warp's rows in runs (``learn_runs``) in the form ``kept_tiles``
+    gives its tile: a kept run's potentials and terms fit its warp's
+    KEPT_TERMS, a re-read run is a warp's share of ``cat_pot_rows``
+    rows; every item's gradient taken once."""
     n, K, long_row = case
     rng = np.random.default_rng(n * K + 1)
     row_item, it_arg, it_meta, row_card, row0, n_rows = _step(rng, n, K,
                                                               long_row)
-    ts = pig._cut_tiles(np.diff(row_item[row0:]))
+    counts = np.diff(row_item[row0:])
+    ts = pig._cut_tiles(counts)
     ends = np.append(ts[1:], n_rows)
-    pr = pig.cat_pot_rows(K)
-    tiles = [(row0 + s, min(pr, e - s)) for a, e in zip(ts, ends)
-             for s in range(a, e, pr)]
-    _check_walk(row_item, it_arg, it_meta, row_card, K, row0, n_rows, tiles)
-    # the gradient pass: a quarter of each piece's items a warp, in
-    # chunks of at most WARP items and CAT_ARGS staged arguments, each
-    # item once
+    npc = [-(-int(counts[a:e].sum()) // pig.TILE_ITEMS)
+           for a, e in zip(ts, ends)]
+    o = {"tl_r0": ts, "tl_pc0": np.cumsum([0] + npc[:-1]),
+         "pc_start": np.zeros(sum(npc))}
+    tile_kept = pig.kept_tiles(o, counts, row_card[row0:], K)
+    runs = learn_runs(row_item, row_card, K,
+                      [(row0 + a, e - a, k) for a, e, k in
+                       zip(ts, ends, tile_kept)])
+    terms = _check_walk(row_item, it_arg, it_meta, row_card, K, row0,
+                        n_rows, [(r0, nr) for r0, nr, _ in runs])
+    S = pig.cat_stride(K)
     seen = np.zeros(int(row_item[-1]), np.int64)
+    for (r0, nr, kept), nt in zip(runs, terms):
+        if kept:    # potentials and kept terms side by side
+            assert nr <= pig.WARP and nr * S + nt <= pig.KEPT_TERMS
+            seen[int(row_item[r0]):int(row_item[r0 + nr])] += 1
+        else:    # a warp's quarter of cat_pot_rows rows
+            assert nr <= -(-pig.cat_pot_rows(K) // pig.CAT_WARPS)
+    assert int(seen.sum()) == sum(int(counts[a:e].sum()) for a, e, k in
+                                  zip(ts, ends, tile_kept) if k)
+    # the re-read tiles' gradient pass: a quarter of each piece's items a
+    # warp, in chunks of at most WARP items and CAT_ARGS staged
+    # arguments, each item once
+    kept_rows = {r for r0, nr, kept in runs if kept
+                 for r in range(r0, r0 + nr)}
     for a, e in zip(ts, ends):
+        if row0 + a in kept_rows:
+            continue
         T0, T1 = int(row_item[row0 + a]), int(row_item[row0 + e])
         for P0 in range(T0, T1, pig.TILE_ITEMS):
             P1 = min(P0 + pig.TILE_ITEMS, T1)

@@ -370,6 +370,174 @@ def _check_order_tables(lt) -> int:
     return several
 
 
+def _tile_kept(lt, ci, tile: int) -> bool:
+    """Whether tile ``tile`` (local to step ``ci``) is in the categorical
+    learn step's kept form, written out row by row: kmax above 2, one
+    piece, and every
+    row's potentials' stride plus a term for each candidate each of its
+    items can be evaluated at (a dense item one for each below the row's
+    card and kmax, a sparse item two) at most a quarter of KEPT_TERMS."""
+    t, o, K = lt.sweep, lt.host[ci], lt.sweep.kmax
+    rows = np.append(o["tl_r0"], t.n_rows[ci])
+    pieces = np.append(o["tl_pc0"], len(o["pc_start"]))
+    if K <= 2 or pieces[tile + 1] - pieces[tile] > 1:
+        return False
+    for r in range(t.row0[ci] + rows[tile], t.row0[ci] + rows[tile + 1]):
+        items = min(int(t.row_item[r + 1] - t.row_item[r]), pig.KEPT_TERMS)
+        card = min(int(t.row_card[r]), K)
+        if items * max(card, 2) + (K | 1) > pig.KEPT_TERMS // 4:
+            return False
+    return True
+
+
+def _kept_by_tile(lt, ci) -> int:
+    """The items of step ``ci``'s kept tiles, by ``_tile_kept``; the
+    tables mark the same tiles kept (host and device ``tl_kept``)."""
+    o, t = lt.host[ci], lt.sweep
+    row_item = t.row_item.numpy()
+    rows = t.row0[ci] + np.append(o["tl_r0"], t.n_rows[ci])
+    kept = [_tile_kept(lt, ci, k) for k in range(len(o["tl_r0"]))]
+    assert o["tl_kept"].tolist() == kept == lt.tl_kept[
+        lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]].bool().tolist()
+    assert lt.n_kept[ci] == sum(kept)
+    return sum(int(row_item[rows[k + 1]] - row_item[rows[k]])
+               for k in range(len(o["tl_r0"])) if kept[k])
+
+
+def _ehr_tiny():
+    """The EHR task's shape (``chip_smoke.dp_graph``: 24 LFs) at 120
+    candidates: kmax 3, three steps."""
+    import chip_smoke
+    return pig.ItemGridEngine(port_compile_graph(*chip_smoke.dp_graph(
+        120, 24, 7)), device="cpu").learn_tables()
+
+
+def test_kept_form_takes_every_ehr_step():
+    """On the EHR shape (120 candidates x 24 LFs, kmax 3) every step's
+    every tile, and so every item, is in the kept form, as the
+    tile-by-tile rule counts them."""
+    lt = _ehr_tiny()
+    t = lt.sweep
+    assert t.kmax == 3 and len(lt.kept_items) == t.n_steps == 3
+    for ci in range(t.n_steps):
+        n = len(t.item_index[ci])
+        assert lt.kept_items[ci] == n == _kept_by_tile(lt, ci) > 0
+        assert lt.n_kept[ci] == lt.n_tiles[ci]
+
+
+def test_kept_form_leaves_wide_rows_to_the_re_read_form():
+    """A card-128 row (Potts 16x16, 4 items of 128 candidates) takes far
+    more than a quarter of a warp's terms: no tile is kept. The bipartite
+    graph of ``chip_smoke._kept_mixed`` at card 8: the tile holding the
+    two 70-item rows is re-read and the step's other tiles kept, the
+    count equal to the tile-by-tile rule's. At kmax 2 (the item kernels)
+    no tile is kept."""
+    import chip_smoke
+    from numbskull_tpu_torch.models import ising_color_hint
+    from numbskull_tpu_torch.models import potts_grid as port_potts_grid
+    w, v, f, fm, dm, _ = port_potts_grid(16, 16, card=128, weight=0.25,
+                                         fixed=False)
+    lt = pig.ItemGridEngine(port_compile_graph(
+        w, v, f, fm, domain_mask=dm, color_hint=ising_color_hint(16, 16)),
+        device="cpu").learn_tables()
+    assert lt.sweep.kmax == 128 and lt.kept_items == [0, 0]
+    assert lt.n_kept == [0, 0] and not lt.tl_kept.any()
+    lt = pig.ItemGridEngine(port_compile_graph(*chip_smoke._kept_mixed(
+        8, 8)), device="cpu").learn_tables()
+    t = lt.sweep
+    mixed = 0
+    for ci in range(t.n_steps):
+        assert lt.kept_items[ci] == _kept_by_tile(lt, ci)
+        o = lt.host[ci]
+        kept = [_tile_kept(lt, ci, k) for k in range(len(o["tl_r0"]))]
+        rows = t.row_vid[t.row0[ci]:t.row0[ci] + t.n_rows[ci]].numpy()
+        wide = np.flatnonzero(np.isin(rows, (200, 201)))
+        for r in wide:   # their tiles are re-read
+            assert not kept[np.searchsorted(o["tl_r0"], r, "right") - 1]
+        mixed += any(kept) and not all(kept)
+    assert mixed and 0 < sum(lt.kept_items) < len(lt.it_fv)
+    w, v, f, fm, dm, _ = coin_model(300, 0.8, -0.5, 0.4, evidence=True,
+                                    fixed=False, seed=3)
+    coin = pig.ItemGridEngine(port_compile_graph(w, v, f, fm,
+                                                 domain_mask=dm),
+                              device="cpu").learn_tables()
+    star = pig.ItemGridEngine(_star(5000, 2), device="cpu").learn_tables()
+    for kmax2 in (coin, star):
+        assert kmax2.sweep.kmax == 2 and not kmax2.tl_kept.any()
+        assert kmax2.kept_items == kmax2.n_kept == [0] * kmax2.sweep.n_steps
+        for ci in range(kmax2.sweep.n_steps):
+            assert _kept_by_tile(kmax2, ci) == 0
+
+
+class _FakeLearnLib:
+    """Records the step and sum launches, and launches nothing."""
+
+    def __init__(self):
+        self.steps = []
+
+    def nsx_learn_step(self, *args):
+        self.steps.append(args)
+        return 0
+
+    def nsx_learn_sum(self, *args):
+        return 0
+
+
+@pytest.mark.parametrize("graph", ["ehr", "kept_mixed"])
+def test_learn_launch_counts_items(monkeypatch, graph):
+    """Each learn step adds its items to the registry counter
+    ``learn.items`` and its kept tiles' items to ``learn.kept_items``,
+    from the tables and with no sync, and launches the step kernel once
+    for each form its tiles take (kept flag 0: learn_cat_kernel, 1:
+    learn_kept_kernel), re-read first, the tiles' forms (``tl_kept``)
+    passed only to a step of both (a fake library stands in for the
+    card's, CPU tensors for its memory): over an epoch, every item once.
+    The EHR shape's steps are kept, one launch each; the bipartite graph
+    of ``chip_smoke._kept_mixed`` at card 8 has a step of both forms."""
+    import chip_smoke
+    from numbskull_tpu_torch.observability import metrics
+    lt = _ehr_tiny() if graph == "ehr" else pig.ItemGridEngine(
+        port_compile_graph(*chip_smoke._kept_mixed(8, 8)),
+        device="cpu").learn_tables()
+    t = lt.sweep
+    fake = _FakeLearnLib()
+    monkeypatch.setattr(pig, "LEARN_LAUNCHES", 0)
+    monkeypatch.setattr(pig, "_kernel_lib", lambda name="": fake)
+    monkeypatch.setattr(pig, "_stream", lambda device: None)
+    monkeypatch.setattr(t, "ptrs", (None,) * len(pig._TABLE_FIELDS))
+    monkeypatch.setattr(lt, "ptrs", {k: 1 + i for i, k in enumerate((
+        "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + pig._ORDER_FIELDS)})
+    at = len(pig._TABLE_FIELDS) + 10 + pig._ORDER_FIELDS.index("tl_kept")
+    x = torch.zeros(t.n_vars, dtype=torch.int32)
+    w = torch.zeros(t.n_weights, dtype=torch.float32)
+    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    total = kept = 0
+    forms = []
+    for ci in range(t.n_steps):
+        c0 = metrics.snapshot()["counters"]
+        n0 = len(fake.steps)
+        pig._launch_learn(lt, ci, x, x.clone(), w, 1, 1 << 16, hs)
+        c1 = metrics.snapshot()["counters"]
+        d = {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in
+             ("learn.items", "learn.kept_items")}
+        assert d == {"learn.items": len(t.item_index[ci]),
+                     "learn.kept_items": _kept_by_tile(lt, ci)}
+        total += d["learn.items"]
+        kept += d["learn.kept_items"]
+        # the kept flag before the stream
+        forms.append([a[-2] for a in fake.steps[n0:]])
+        assert forms[-1] == [k for k, n in (
+            (0, lt.n_tiles[ci] - lt.n_kept[ci]), (1, lt.n_kept[ci])) if n]
+        assert {a[at] for a in fake.steps[n0:]} == {
+            lt.ptrs["tl_kept"] if len(forms[-1]) == 2 else None}
+    assert total == len(lt.it_fv) and 0 < kept <= total
+    assert pig.LEARN_LAUNCHES == len(fake.steps) + t.n_steps
+    if graph == "ehr":
+        assert forms == [[1]] * t.n_steps and kept == total
+    else:
+        assert [0, 1] in forms and kept < total
+
+
 def _star(n_leaves: int, seed: int):
     """One variable with ``n_leaves`` EQUAL factors to leaves of its own,
     alternating between two learnable weights, with non-dyadic
