@@ -1025,6 +1025,15 @@ def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
     else:
         lo = hi = np.zeros(0, np.int64)
     one = lo == hi
+
+    def by(major, minor):
+        # np.lexsort((minor, major)) as one stable sort of a single key
+        if not len(minor):
+            return np.zeros(0, np.int64)
+        low = minor.min()
+        return np.argsort(major * (int(minor.max() - low) + 1) +
+                          (minor - low), kind="stable")
+
     g_pc, g_wid = [np.flatnonzero(one)], [lo[one]]
     g_off, g_len = [np.zeros(int(one.sum()), np.int64)], [plen[one]]
     pc_perm = np.full(NP, -1, np.int64)
@@ -1034,7 +1043,7 @@ def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
         pc_perm[many] = np.cumsum(plen[many]) - plen[many]
         items = np.flatnonzero(np.repeat(~one, plen))
         pc_of = np.repeat(np.arange(NP), plen)[items]
-        order = np.lexsort((wl[items], pc_of))        # stable: item order
+        order = by(pc_of, wl[items])                 # stable: item order
         items, pc_of = items[order], pc_of[order]
         w_of = wl[items]
         perm = items - ps[pc_of]
@@ -1046,10 +1055,10 @@ def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
         g_len.append(np.diff(np.append(brk, len(items))))
     g_pc, g_wid, g_off, g_len = (np.concatenate(a) for a in
                                  (g_pc, g_wid, g_off, g_len))
-    by_pc = np.lexsort((g_wid, g_pc))
+    by_pc = by(g_pc, g_wid)
     g_pc, g_wid, g_off, g_len = (a[by_pc] for a in
                                  (g_pc, g_wid, g_off, g_len))
-    by_w = np.lexsort((g_pc, g_wid))
+    by_w = by(g_wid, g_pc)
     slot = np.empty(len(g_pc), np.int64)
     slot[by_w] = np.arange(len(g_pc))
     wid, p0, nps = np.unique(g_wid[by_w], return_index=True,
@@ -1564,6 +1573,8 @@ def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
         _coin_salt(epoch, ci), _stream(lt.sweep.device)),
         "learn sum kernel")
     LEARN_LAUNCHES += 1
+    metrics.add("learn.sum_weights", lt.n_wt[ci])
+    metrics.add("learn.sum_partials", len(lt.host[ci]["gr_len"]))
 
 
 def learn_color_partial(lt: LearnTables, ci: int, x: torch.Tensor,
