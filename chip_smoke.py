@@ -190,8 +190,10 @@ full run takes phase 13 right after phase 2):
 13. Every factor function through kernels #1 and #2: (a) random graphs
    with dyadic weights (``random_graph``, ``dp_graph``): each of the 25
    codes alone, boolean at arity 1 to 4, at arity 13 (the 8-lane item
-   path; codes of free arity), with one row of 1,100 items (1 lane,
-   the learn step kernel at KMAX 2) and at cardinality 3 to 8, 3 to 32
+   path; codes of free arity), with one row of 1,100 items (1 lane;
+   at KMAX 2 a tile of its own past ITEM_TILE, so the learn step kernel,
+   where every other KMAX-2 step, its tiles cut at ITEM_CUT items, runs
+   the learn item kernel) and at cardinality 3 to 8, 3 to 32
    and 3 to 128 (the categorical kernels at KMAX 8, 32, 128; at 8 and
    32 with a row too wide for the learn kernel's kept form, so that
    both learn kernels run), each under every map x draw; then every
@@ -215,7 +217,11 @@ full run takes phase 13 right after phase 2):
    epoch-differenced epoch times of kernel and plain version; (e) Potts
    256x256 at cardinality 128 with 30 % evidence through
    ``ItemGridEngine.run`` and ``.learn`` (launches counted), kernels
-   against plain versions, epoch times of both.
+   against plain versions, epoch times of both; (f) DeepDive's spouse
+   graph's shape at KMAX 2 (``spouse_shape``: rows of 10 to 62 ISTRUE
+   and IMPLY items, runs of 128 rows far past ITEM_CUT items) takes the
+   learn item kernel in every step, and its learning with non-dyadic
+   featureValues equals the plain version bit for bit.
 
 The line before the last is the kernels' JSON record (per kernel: main
 path launches, largest difference from the plain version, ms per epoch
@@ -3546,8 +3552,8 @@ FIXED_ARITY = {"DP_GEN_CLASS_PRIOR": 1, "DP_GEN_LF_PRIOR": 1,
                "DP_GEN_DEP_REINFORCING": 3, "DP_GEN_DEP_EXCLUSIVE": 2,
                "DP_GEN_DEP_SIMILAR": 2}
 DYADIC = (-1.0, -0.75, -0.5, -0.25, -0.125, 0.125, 0.25, 0.5, 0.75, 1.0)
-HUB_FACTORS = 1100       # items on the hub row: beyond LEARN_ITEM_TILE
-LEARN_ITEM_TILE = 1024   # kItemTile of csrc/itemgrid_learn.cu
+HUB_FACTORS = 1100       # items on the hub row: past ops/itemgrid.ITEM_TILE
+SPOUSE_PAIRS = 1000      # phase 13 (f): spouse_shape's candidate pairs
 # factors of a cat or cat32 graph on its wide row: more evaluations than
 # the categorical learn kernel keeps for a row (ops/itemgrid.kept_terms),
 # so that its step is re-read while the graph's other steps are kept; a
@@ -3637,6 +3643,45 @@ def random_graph(codes, kind, seed, n_vars=None, n_factors=None,
     fm["vid"] = np.concatenate(vids)
     fm["dense_equal_to"] = rng.integers(0, 1 << 30, len(fm)) % \
         card[fm["vid"]]
+    return w, v, f, fm
+
+
+def spouse_shape(pairs, seed, fv=None):
+    """(weights, variables, factors, fmap) of DeepDive's spouse graph's
+    shape at kmax 2: boolean candidates in pairs (a sentence's two
+    orderings), each with 8 to 60 ISTRUE feature factors on 200
+    learnable weights drawn Zipf-like, and the symmetry rule both ways
+    (IMPLY on the fixed weight 0), 30 % evidence: rows of 10 to 62 items,
+    whose runs of 128 rows hold some 4,500. ``fv(rng, n)`` draws the
+    featureValues (default 1). The types are the port's, which the JAX
+    package's equal field for field."""
+    import numpy as np
+
+    from numbskull_tpu_torch import types as T
+    rng = np.random.default_rng(seed)
+    n = 2 * pairs
+    nfeat = rng.integers(8, 61, n)
+    nf = int(nfeat.sum())
+    v = T.new_variables(n)
+    v["isEvidence"] = rng.random(n) < 0.3
+    v["initialValue"] = rng.integers(0, 2, n)
+    v["dataType"] = 0
+    v["cardinality"] = 2
+    w = T.new_weights(201)
+    w["isFixed"] = np.arange(201) == 0
+    w["initialValue"] = np.where(np.arange(201) == 0, 0.75, 0.0)
+    f = T.new_factors(nf + n)
+    f["factorFunction"] = np.where(np.arange(nf + n) < nf, T.FUNC_ISTRUE,
+                                   T.FUNC_IMPLY_NATURAL)
+    f["weightId"] = np.concatenate((np.minimum(rng.zipf(1.5, nf), 200),
+                                    np.zeros(n, np.int64)))
+    f["featureValue"] = 1.0 if fv is None else fv(rng, nf + n)
+    f["arity"] = np.where(np.arange(nf + n) < nf, 1, 2)
+    f["ftv_offset"] = np.concatenate(([0], np.cumsum(f["arity"])[:-1]))
+    fm = T.new_fmap(nf + 2 * n)
+    fm["vid"][:nf] = np.repeat(np.arange(n), nfeat)
+    fm["vid"][nf::2] = np.arange(n)          # candidate i implies
+    fm["vid"][nf + 1::2] = np.arange(n) ^ 1  # its reverse
     return w, v, f, fm
 
 
@@ -3790,18 +3835,22 @@ def sweep_paths(t):
 
 def learn_paths(lt):
     """{factor code: {learn step kernel}} of learn tables ``lt``: the
-    choice of nsx_learn_step (at kmax 2 learn_item_kernel when the
-    step's longest piece fits LEARN_ITEM_TILE, else learn_step_kernel;
-    above it learn_kept_kernel<KMAX> for the codes of the step's kept
-    tiles, learn_cat_kernel<KMAX> for those of its others)."""
+    choice of nsx_learn_step (at kmax 2, where the host cuts tiles at
+    ITEM_CUT items, learn_item_kernel unless a row of more than
+    ITEM_TILE items, a tile of its own, makes the step's longest piece
+    pass it, then learn_step_kernel; above it learn_kept_kernel<KMAX>
+    for the codes of the step's kept tiles, learn_cat_kernel<KMAX> for
+    those of its others)."""
     import numpy as np
+
+    from numbskull_tpu_torch.ops.itemgrid import ITEM_TILE
     t = lt.sweep
     out = {}
     for ci in range(t.n_steps):
         if t.n_rows[ci] == 0:
             continue
         if t.kmax <= 2:
-            path = ("learn_item" if lt.smem_items[ci] <= LEARN_ITEM_TILE
+            path = ("learn_item" if lt.smem_items[ci] <= ITEM_TILE
                     else "learn_step")
             for c in _step_codes(t, ci):
                 out.setdefault(c, set()).add(path)
@@ -3822,13 +3871,15 @@ def required_paths(name):
     """(sweep, learn) requirements of factor code ``name``: labels and
     tests on a sweep path of sweep_paths, and the learn kernels. Every
     code runs the categorical kernel at KMAX 8, 32 and 128 and every
-    learn kernel; in the item kernel, a code of free arity runs 1 lane,
-    2 to 4 and 8 or more lanes an item (FAST for ops/itemgrid.FAST_TYPES,
-    and not FAST in the mixed graph), a code of fixed arity the lanes
-    its arity gives; both categorical learn kernels at KMAX 8 and 32 (the
-    cat and cat32 graphs' wide rows, WIDE_FACTORS), the re-read one at
-    128 (a row at card 128 is too wide to keep; phase 2's kept_mixed
-    graphs keep rows at KMAX 128)."""
+    learn kernel (at KMAX 2 learn_step_kernel on the hub graph's
+    HUB_FACTORS-item row, a tile of its own past ITEM_TILE, and
+    learn_item_kernel on the other steps); in the item kernel, a code of
+    free arity runs 1 lane, 2 to 4 and 8 or more lanes an item (FAST
+    for ops/itemgrid.FAST_TYPES, and not FAST in the mixed graph), a code
+    of fixed arity the lanes its arity gives; both categorical learn
+    kernels at KMAX 8 and 32 (the cat and cat32 graphs' wide rows,
+    WIDE_FACTORS), the re-read one at 128 (a row at card 128 is too wide
+    to keep; phase 2's kept_mixed graphs keep rows at KMAX 128)."""
     from numbskull_tpu_torch import types as T
     from numbskull_tpu_torch.ops.itemgrid import FAST_TYPES, sweep_lanes
     need = [("cat<%d>" % k, lambda p, k=k: p == ("cat", k))
@@ -4204,9 +4255,44 @@ def phase_factors(torch, card):
     t1 = time.perf_counter()
     potts = _phase13_potts(torch, card)
     log("  (e) took %.1f s" % (time.perf_counter() - t1))
+    t1 = time.perf_counter()
+    _phase13_spouse(torch)
+    log("  (f) took %.1f s" % (time.perf_counter() - t1))
     log("  phase 13 took %.1f s" % (time.perf_counter() - t0))
     dp["err"] = max(dp["err"], worst)
     return dict(dp=dp, potts=potts)
+
+
+def _phase13_spouse(torch):
+    """Phase 13 (f): the spouse shape (``spouse_shape``, SPOUSE_PAIRS
+    pairs), whose runs of 128 rows pass ITEM_TILE items, takes
+    learn_item_kernel in every step (its tiles cut at ITEM_CUT items),
+    and its learning with featureValues in [0.3, 1.7] (sums that round,
+    in the order the tiles fix) equals the plain version bit for bit."""
+    from numbskull_tpu_torch import types as T
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    eng = pig.ItemGridEngine(compile_graph(*spouse_shape(
+        SPOUSE_PAIRS, 11, fv=lambda rng, n: rng.uniform(0.3, 1.7, n))),
+        device=DEVICE)
+    lt = eng.learn_tables()
+    t = lt.sweep
+    run = max(int(t.row_item[t.row0[ci] + min(t.n_rows[ci], pig.TILE_ROWS)]
+                  - t.row_item[t.row0[ci]]) for ci in range(t.n_steps))
+    paths = learn_paths(lt)
+    log("  (f) spouse shape: %d rows, %d steps, up to %d items in a step's "
+        "first 128 rows, %d tiles, longest piece %d; learn: %s"
+        % (t.row0[-1] + t.n_rows[-1], t.n_steps, run, sum(lt.n_tiles),
+           max(lt.smem_items), paths))
+    if run <= pig.ITEM_TILE or paths != {
+            T.FUNC_ISTRUE: {"learn_item"},
+            T.FUNC_IMPLY_NATURAL: {"learn_item"}}:
+        fail("the spouse shape does not take learn_item_kernel in every "
+             "step")
+    check_learn_equal(torch, "spouse shape", eng,
+                      LearnParams(regularization=2, reg_param=0.01),
+                      seed=13, burn=1, epochs=3)
 
 
 def _cat_entry(r, mode):

@@ -17,13 +17,14 @@
 // How: two launches on one stream per (epoch, color), three where a
 // categorical step has tiles of both forms.
 //   step kernel        learn_item_kernel at KMAX 2 (learn_step_kernel
-//                      for a tile of more than kItemTile items),
+//                      for a step with a row of more than kItemTile
+//                      items),
 //                      learn_cat_kernel and learn_kept_kernel at KMAX 8,
 //                      32, 128, for the step's tiles of the re-read and
 //                      of the kept form (see below):
 //                      one block of kTileRows threads per tile, a run of
 //                      at most kTileRows of the color's rows whose items
-//                      fit the shared-memory budget
+//                      fit the shared-memory budget, at KMAX 2 896
 //                      (ops/itemgrid.build_learn_tables cuts them). It
 //                      draws both chains of every row and leaves each
 //                      item's (gradient, counted) in shared memory, then
@@ -55,9 +56,11 @@
 // dependent loads (item -> arguments -> values), so the rows and items in
 // flight per SM. Each item is evaluated at its candidates for both
 // chains; eval_item2 reads an item's argument tables once for the two.
-// At KMAX 2 with at most kItemTile items per tile (the boolean graphs of
-// the main path) learn_item_kernel runs the tile's items in parallel,
-// neighbouring threads on neighbouring items and arguments: each item's
+// At KMAX 2 the host cuts tiles at 896 items (ops/itemgrid.ITEM_CUT,
+// greedily over the step's rows, so that tiles are full; under kItemTile,
+// so that 8 blocks' shared memory fits an SM), and learn_item_kernel runs
+// a tile's items in parallel, neighbouring threads on neighbouring items
+// and arguments: each item's
 // evaluations at 0 and 1 for both chains go to shared memory (EQUAL,
 // ISTRUE, AND and OR from the one count their value reads), one thread
 // per row adds its items' terms from there in item order (the plain
@@ -65,10 +68,11 @@
 // already made at each drawn value, the same function of the same
 // inputs; only an item that was not evaluated at a drawn value is
 // evaluated again. That kernel is held to 64 registers, 8 blocks an SM.
-// A KMAX-2 tile of more items (a row of more than kItemTile) runs
-// learn_step_kernel, one thread per row, which reads its items a second
-// time for the gradient. At KMAX 8, 32 and 128 the categorical kernels
-// run the tile's items in parallel for both chains' potentials through
+// Only a step with a row of more than kItemTile items (a tile of its
+// own, summed in pieces) runs learn_step_kernel, one thread per row,
+// which reads its items a second time for the gradient. At KMAX 8, 32
+// and 128 the categorical kernels run the tile's items in parallel for
+// both chains' potentials through
 // cat_potentials (itemgrid_common.cuh; every candidate the dense / d1 /
 // d2 rule keeps evaluated from one read of the item's arguments for both
 // chains, the terms added per (row, candidate) in item order). A tile of
@@ -458,8 +462,9 @@ __global__ void __launch_bounds__(kTileRows, 8)
             s_mem, s_rg, s_rn);
 }
 
-// KMAX 2, a tile of more than kItemTile items (a row of more than
-// kItemTile items): one thread per row (potentials, draws), then its
+// KMAX 2, a step with a tile of more than kItemTile items (a row of more
+// than kItemTile items, a tile of its own; the step's other tiles are
+// cut at 896): one thread per row (potentials, draws), then its
 // items' gradients, piece by piece. Allowed 128 registers (4 blocks an
 // SM): ptxas left to itself spills it
 __global__ void __launch_bounds__(kTileRows, 4)

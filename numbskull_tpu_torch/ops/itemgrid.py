@@ -103,6 +103,11 @@ WEIGHT_SALT_XOR = 0x33333333    # the L1 truncation coin
 LEARN_EPOCH0 = 1 << 16          # salt epoch of learning epoch 0
 TILE_ROWS = 128      # rows per learn tile: threads of a step block
 TILE_ITEMS = 4096    # items per piece: a tile's shared-memory budget
+ITEM_TILE = 1024     # kmax 2: a step whose longest piece holds at most
+#                      this many items runs learn_item_kernel (kItemTile)
+ITEM_CUT = 896       # kmax 2: a learn tile's items at most: under
+#                      ITEM_TILE, so that 8 blocks of learn_item_kernel
+#                      (27 B of shared memory an item) fit an H100 SM, not 7
 SUM_WIDTH = 1024     # threads of a weight-sum block: a weight with more
 #                      partials than this takes one, any other a warp
 WARP = 32
@@ -930,8 +935,10 @@ class LearnTables:
     ``sweep`` is the tables under the learn schedule (every step `row`
     and `cdf`; the tensors are shared). The rest fix the order in which
     a step's gradients sum (:func:`build_learn_tables`): its rows are cut
-    into tiles (``tl_*``), a tile's items into pieces of at most
-    TILE_ITEMS (``pc_*``), a piece's items into one group per weight
+    into tiles (``tl_*``; at kmax 2 of at most ITEM_CUT items, so that
+    learn_item_kernel takes every step without a row of more than
+    ITEM_TILE), a tile's items into pieces of at most TILE_ITEMS
+    (``pc_*``), a piece's items into one group per weight
     (``gr_*``; listed through ``perm`` when the piece holds more than one
     weight), each group with a partial slot (``part_g``, ``part_n``),
     slots weight-major with tiles in row order; ``wt_*`` name, per step,
@@ -974,45 +981,46 @@ _ORDER_FIELDS = ("tl_r0", "tl_pc0", "pc_g0", "pc_perm", "gr_off", "gr_len",
                  "gr_slot", "perm", "tl_kept", "part_g", "part_n")
 
 
-def _cut_tiles(counts: np.ndarray) -> np.ndarray:
+def _cut_tiles(counts: np.ndarray, kmax: int) -> np.ndarray:
     """The first row of every tile of a step whose rows hold ``counts``
-    items: the rows in runs of TILE_ROWS, and a run of more than
-    TILE_ITEMS items cut greedily into tiles of at most TILE_ITEMS items;
-    a row of more than TILE_ITEMS items is a tile of its own (its items
-    are summed in pieces)."""
+    items, cut greedily: a tile from row s takes rows while it has at
+    most TILE_ROWS and its items stay within the budget, and row s at
+    the least (a row of more items is a tile of its own, summed in pieces
+    of TILE_ITEMS). At kmax 2 the budget is ITEM_CUT (a tile of
+    learn_item_kernel) and the cut runs over the step's rows, so that
+    tiles are full; above it the budget is TILE_ITEMS, and each run of
+    TILE_ROWS rows is cut on its own. Every row's end is found at once,
+    the chain of tiles from row 0 by doubling (``jump`` is that end taken
+    2**k times, ``ts`` the chain's first 2**k members)."""
     counts = np.asarray(counts, np.int64)
     n = len(counts)
-    if n == 0:
-        return np.zeros(0, np.int64)
     starts = np.arange(0, n, TILE_ROWS)
-    fits = np.add.reduceat(counts, starts) <= TILE_ITEMS
-    if fits.all():
+    budget = ITEM_CUT if kmax <= 2 else TILE_ITEMS
+    if n == 0 or (np.add.reduceat(counts, starts) <= budget).all():
         return starts
     cum = np.concatenate(([0], np.cumsum(counts)))
-    cut = [starts[fits]]
-    for a in starts[~fits]:
-        b = min(a + TILE_ROWS, n)
-        s = a
-        while s < b:
-            cut.append([s])
-            if counts[s] > TILE_ITEMS:
-                s += 1
-            else:
-                e = np.searchsorted(cum, cum[s] + TILE_ITEMS, "right") - 1
-                s = min(e, b)
-    return np.sort(np.concatenate(cut).astype(np.int64))
+    r = np.arange(n)
+    last = r + TILE_ROWS if kmax <= 2 else (r // TILE_ROWS + 1) * TILE_ROWS
+    end = np.searchsorted(cum, cum[:-1] + budget, "right") - 1
+    jump = np.append(np.clip(end, r + 1, last), n)
+    ts = np.zeros(1, np.int64)
+    while ts[-1] < n:
+        ts = np.concatenate((ts, jump[ts]))
+        jump = jump[jump]
+    return ts[ts < n]
 
 
-def _step_order(counts: np.ndarray, wl: np.ndarray) -> dict:
+def _step_order(counts: np.ndarray, wl: np.ndarray, kmax: int) -> dict:
     """One step's order tables, local to the step (rows, items, pieces,
-    groups and slots numbered from 0): tiles from :func:`_cut_tiles`,
+    groups and slots numbered from 0): tiles from :func:`_cut_tiles` (at
+    kmax 2 of at most ITEM_CUT items where no row holds more),
     pieces of TILE_ITEMS items, one group per (piece, weight) listing
     the piece's items of that weight in item order, slots weight-major
     with pieces in row order, and the weights with their slot runs, the
     ones with more than SUM_WIDTH slots first."""
     n = len(counts)
     cum = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
-    ts = _cut_tiles(counts)
+    ts = _cut_tiles(counts, kmax)
     it0, it1 = cum[ts], cum[np.append(ts[1:], n)]
     npc = -(-(it1 - it0) // TILE_ITEMS)
     pc0 = np.concatenate(([0], np.cumsum(npc)))
@@ -1122,7 +1130,7 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
         wl = np.asarray(t.plans[ci].it_wid)[t.item_index[ci]].astype(
             np.int64)
         counts = np.diff(row_item[lo:lo + n + 1])
-        o = _step_order(counts, wl)
+        o = _step_order(counts, wl, t.kmax)
         kept = o["tl_kept"] = kept_tiles(o, counts, row_card[lo:lo + n],
                                          t.kmax)
         steps.append(o)
@@ -1545,6 +1553,9 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
         EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
     metrics.add("learn.kept_items", lt.kept_items[ci])
     metrics.add("learn.items", len(t.item_index[ci]))
+    if t.kmax <= 2:    # learn_item_kernel unless a row is over ITEM_TILE
+        metrics.add("learn.item_form_items", len(t.item_index[ci]) if
+                    lt.smem_items[ci] <= ITEM_TILE else 0)
     return True
 
 

@@ -231,7 +231,7 @@ def test_learn_tiles_cover_every_row_item_and_candidate_once(case):
     row_item, it_arg, it_meta, row_card, row0, n_rows = _step(rng, n, K,
                                                               long_row)
     counts = np.diff(row_item[row0:])
-    ts = pig._cut_tiles(counts)
+    ts = pig._cut_tiles(counts, K)
     ends = np.append(ts[1:], n_rows)
     npc = [-(-int(counts[a:e].sum()) // pig.TILE_ITEMS)
            for a, e in zip(ts, ends)]

@@ -109,6 +109,14 @@ def _istrue2048():
     return jax_compile_graph(w, v, f, fm)
 
 
+def _spouse2():
+    """``chip_smoke.spouse_shape``: DeepDive's spouse graph's shape at
+    kmax 2 (rows of 10 to 62 ISTRUE and IMPLY items, runs of 128 rows
+    far past ITEM_CUT items), 256 candidates."""
+    import chip_smoke
+    return jax_compile_graph(*chip_smoke.spouse_shape(128, 7))
+
+
 FIXTURES = {
     # name: (graph, learn params, seed, burn, epochs, stepsize, decay)
     "coin_l2": (_coin, dict(regularization=2, reg_param=1e-4), 5, 3, 8,
@@ -123,6 +131,9 @@ FIXTURES = {
                                         truncation=3), 1, 1, 6, 0.4, 1.0),
     "coin_l2_decay": (_coin, dict(regularization=2, reg_param=1e-4), 6, 2,
                       8, 0.1, 0.99),
+    # kmax 2, tiles cut at ITEM_CUT items
+    "spouse_l2": (_spouse2, dict(regularization=2, reg_param=0.01), 7, 1,
+                  2, 0.05, 1.0),
 }
 
 
@@ -340,7 +351,10 @@ def _check_order_tables(lt) -> int:
         assert (np.diff(rows) > 0).all() and rows[0] == 0
         assert (np.diff(rows) <= pig.TILE_ROWS).all()
         r = t.row0[ci] + rows
-        assert (row_item[r[1:]] - row_item[r[:-1]] <= pig.TILE_ITEMS).all()
+        sizes = row_item[r[1:]] - row_item[r[:-1]]
+        assert (sizes <= pig.TILE_ITEMS).all()
+        if t.kmax <= 2:    # the item kernel's tile, but for a row over it
+            assert ((sizes <= pig.ITEM_CUT) | (np.diff(rows) == 1)).all()
         np.testing.assert_array_equal(
             tl_r0[lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]], r[:-1])
         seen = np.zeros(len(t.item_index[ci]), np.int64)
@@ -483,6 +497,32 @@ class _FakeLearnLib:
         return 0
 
 
+def _fake_launches(monkeypatch, lt):
+    """A fake library in place of the card's (CPU tensors for its
+    memory), and ``launch(ci, keys)``: the launches of learn step ``ci``
+    (:func:`pig._launch_learn`), returning what they added to the
+    registry counters ``keys``."""
+    from numbskull_tpu_torch.observability import metrics
+    t = lt.sweep
+    fake = _FakeLearnLib()
+    monkeypatch.setattr(pig, "LEARN_LAUNCHES", 0)
+    monkeypatch.setattr(pig, "_kernel_lib", lambda name="": fake)
+    monkeypatch.setattr(pig, "_stream", lambda device: None)
+    monkeypatch.setattr(t, "ptrs", (None,) * len(pig._TABLE_FIELDS))
+    monkeypatch.setattr(lt, "ptrs", {k: 1 + i for i, k in enumerate((
+        "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + pig._ORDER_FIELDS)})
+    x = torch.zeros(t.n_vars, dtype=torch.int32)
+    w = torch.zeros(t.n_weights, dtype=torch.float32)
+    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+
+    def launch(ci, keys):
+        c0 = metrics.snapshot()["counters"]
+        pig._launch_learn(lt, ci, x, x.clone(), w, 1, 1 << 16, hs)
+        c1 = metrics.snapshot()["counters"]
+        return {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in keys}
+    return fake, launch
+
+
 @pytest.mark.parametrize("graph", ["ehr", "kept_mixed"])
 def test_learn_launch_counts_items(monkeypatch, graph):
     """Each learn step adds its items to the registry counter
@@ -495,31 +535,17 @@ def test_learn_launch_counts_items(monkeypatch, graph):
     The EHR shape's steps are kept, one launch each; the bipartite graph
     of ``chip_smoke._kept_mixed`` at card 8 has a step of both forms."""
     import chip_smoke
-    from numbskull_tpu_torch.observability import metrics
     lt = _ehr_tiny() if graph == "ehr" else pig.ItemGridEngine(
         port_compile_graph(*chip_smoke._kept_mixed(8, 8)),
         device="cpu").learn_tables()
     t = lt.sweep
-    fake = _FakeLearnLib()
-    monkeypatch.setattr(pig, "LEARN_LAUNCHES", 0)
-    monkeypatch.setattr(pig, "_kernel_lib", lambda name="": fake)
-    monkeypatch.setattr(pig, "_stream", lambda device: None)
-    monkeypatch.setattr(t, "ptrs", (None,) * len(pig._TABLE_FIELDS))
-    monkeypatch.setattr(lt, "ptrs", {k: 1 + i for i, k in enumerate((
-        "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + pig._ORDER_FIELDS)})
+    fake, launch = _fake_launches(monkeypatch, lt)
     at = len(pig._TABLE_FIELDS) + 10 + pig._ORDER_FIELDS.index("tl_kept")
-    x = torch.zeros(t.n_vars, dtype=torch.int32)
-    w = torch.zeros(t.n_weights, dtype=torch.float32)
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
     total = kept = 0
     forms = []
     for ci in range(t.n_steps):
-        c0 = metrics.snapshot()["counters"]
         n0 = len(fake.steps)
-        pig._launch_learn(lt, ci, x, x.clone(), w, 1, 1 << 16, hs)
-        c1 = metrics.snapshot()["counters"]
-        d = {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in
-             ("learn.items", "learn.kept_items")}
+        d = launch(ci, ("learn.items", "learn.kept_items"))
         assert d == {"learn.items": len(t.item_index[ci]),
                      "learn.kept_items": _kept_by_tile(lt, ci)}
         total += d["learn.items"]
@@ -691,3 +717,233 @@ def test_learn_wrapper_devices_and_launch_counts():
                         pig.CLAMPED_SALT_XOR)
     eng.learn(1, 1, 2, 0.1)
     assert pig.LEARN_LAUNCHES == 0 and pig.KERNEL_LAUNCHES == 0
+
+
+# ---- kmax 2: tiles cut at ITEM_CUT items, for the item kernel ------------
+
+def _greedy_reference(counts, budget: int) -> np.ndarray:
+    """The greedy cut row by row: a tile takes rows while it has fewer
+    than TILE_ROWS and its items stay within ``budget``; a row over the
+    budget is a tile of its own."""
+    out, s, n = [], 0, len(counts)
+    while s < n:
+        out.append(s)
+        e, items = s, 0
+        while e < n and e - s < pig.TILE_ROWS and items + counts[e] <= budget:
+            items += counts[e]
+            e += 1
+        s = max(e, s + 1)
+    return np.asarray(out, np.int64)
+
+
+def _runs_reference(counts) -> np.ndarray:
+    """The cut above kmax 2, row by row: runs of TILE_ROWS rows, a run of
+    more than TILE_ITEMS items cut greedily within it."""
+    return np.concatenate([
+        a + _greedy_reference(counts[a:a + pig.TILE_ROWS], pig.TILE_ITEMS)
+        for a in range(0, len(counts), pig.TILE_ROWS)]).astype(np.int64)
+
+
+def _counts(case: str) -> np.ndarray:
+    rng = np.random.default_rng(len(case))
+    spouse = rng.integers(10, 63, 3000)
+    return {"spouse rows": spouse,
+            "ising rows": np.full(1000, 4),
+            "empty rows": np.where(rng.random(3000) < 0.3, 0, spouse),
+            "row of 1000": np.insert(spouse, 700, 1000),
+            "row of 1100": np.insert(spouse, 700, 1100),
+            "row of 5000": np.insert(spouse, 700, 5000),
+            "one row": np.array([30])}[case]
+
+
+COUNT_CASES = ["spouse rows", "ising rows", "empty rows", "row of 1000",
+               "row of 1100", "row of 5000", "one row"]
+
+
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_tile_cut_against_row_by_row(case):
+    """_cut_tiles at kmax 2 == the greedy cut at ITEM_CUT items over the
+    step's rows, and above it == the runs of TILE_ROWS rows cut at
+    TILE_ITEMS, on the same rows; where every run of TILE_ROWS rows fits
+    ITEM_CUT (a 4-item Ising row) both are the runs."""
+    counts = _counts(case)
+    np.testing.assert_array_equal(pig._cut_tiles(counts, 2),
+                                  _greedy_reference(counts, pig.ITEM_CUT))
+    for kmax in (3, 8, 128):
+        np.testing.assert_array_equal(pig._cut_tiles(counts, kmax),
+                                      _runs_reference(counts))
+    if case == "ising rows":
+        np.testing.assert_array_equal(pig._cut_tiles(counts, 2),
+                                      np.arange(0, 1000, pig.TILE_ROWS))
+
+
+@pytest.mark.parametrize("big", [1000, 1100, 5000])
+def test_kmax2_row_over_the_item_tile_is_a_tile_of_its_own(big):
+    """A row of more than ITEM_CUT items among spouse rows is a tile of
+    its own, summed in pieces of TILE_ITEMS items, while every other tile
+    holds at most ITEM_CUT items; the step's longest piece is that row's
+    first, so a row of at most ITEM_TILE items (1,000) leaves the step to
+    learn_item_kernel, and one of more (1,100, 5,000) gives it to
+    learn_step_kernel."""
+    counts = _counts("row of %d" % big)
+    wl = np.random.default_rng(3).integers(0, 50, int(counts.sum()))
+    o = pig._step_order(counts, wl, 2)
+    ts = o["tl_r0"]
+    k = int(np.flatnonzero(ts == 700)[0])
+    assert ts[k + 1] == 701
+    pieces = np.append(o["tl_pc0"], len(o["pc_len"]))
+    np.testing.assert_array_equal(
+        o["pc_len"][pieces[k]:pieces[k + 1]],
+        [min(big, pig.TILE_ITEMS)] + ([big - pig.TILE_ITEMS]
+                                      if big > pig.TILE_ITEMS else []))
+    assert o["smem_items"] == min(big, pig.TILE_ITEMS)
+    assert (o["smem_items"] > pig.ITEM_TILE) == (big > pig.ITEM_TILE)
+    cum = np.concatenate(([0], np.cumsum(counts)))
+    sizes = np.diff(cum[np.append(ts, len(counts))])
+    assert (np.delete(sizes, k) <= pig.ITEM_CUT).all()
+
+
+def _spouse_tables(schedule: str):
+    """The spouse shape's learn tables under the port's schedule or the
+    JAX plan's."""
+    cg = _spouse2()
+    if schedule == "jax plan":
+        return _port_engine(cg)[0].learn_tables()
+    pcg = compiled_graph_from_reference(dataclasses.asdict(cg))
+    return pig.ItemGridEngine(pcg, device="cpu").learn_tables()
+
+
+@pytest.mark.parametrize("schedule", ["port", "jax plan"])
+def test_kmax2_tiles_fit_the_item_kernel(schedule):
+    """The spouse shape at kmax 2 (rows of 10 to 62 items, a step's 128
+    rows about 4,500 items): every tile holds at most TILE_ROWS rows and
+    ITEM_CUT items and is full (TILE_ROWS rows, or its next row would
+    pass ITEM_CUT), so every step's longest piece fits learn_item_kernel;
+    the order tables cover every item once, and the weight sums follow
+    the kernels' documented order on non-dyadic gradients."""
+    lt = _spouse_tables(schedule)
+    t = lt.sweep
+    assert t.kmax == 2 and _check_order_tables(lt) > 0
+    row_item = t.row_item.numpy()
+    rng = np.random.default_rng(6)
+    for ci in range(t.n_steps):
+        o, r0 = lt.host[ci], t.row0[ci]
+        counts = np.diff(row_item[r0:r0 + t.n_rows[ci] + 1])
+        assert counts[:pig.TILE_ROWS].sum() > 4 * pig.ITEM_CUT
+        rows = np.append(o["tl_r0"], t.n_rows[ci])
+        cum = np.concatenate(([0], np.cumsum(counts)))
+        sizes = np.diff(cum[rows])
+        assert (np.diff(rows) <= pig.TILE_ROWS).all()
+        assert (sizes <= pig.ITEM_CUT).all()
+        full = (np.diff(rows)[:-1] == pig.TILE_ROWS) | (
+            sizes[:-1] + counts[rows[1:-1]] > pig.ITEM_CUT)
+        assert full.all()
+        assert lt.smem_items[ci] <= pig.ITEM_CUT <= pig.ITEM_TILE
+        assert len(o["pc_len"]) == len(o["tl_r0"])   # a piece a tile
+        n_items = len(t.item_index[ci])
+        g = (rng.standard_normal(n_items) / 3).astype(np.float32)
+        inc = rng.integers(0, 2, n_items).astype(np.int32)
+        gs, ns = pig._weight_sums(lt, ci, torch.as_tensor(g),
+                                  torch.as_tensor(inc))
+        want_g, want_n = _replay_weight_sums(o, g, inc)
+        np.testing.assert_array_equal(gs.numpy().view(np.int32),
+                                      want_g.view(np.int32))
+        np.testing.assert_array_equal(ns.numpy(), want_n)
+
+
+def _parent_cut(counts, kmax):
+    """The cut before kmax 2 had its own: runs of TILE_ROWS rows cut at
+    TILE_ITEMS at every kmax."""
+    return _runs_reference(np.asarray(counts, np.int64))
+
+
+def _tables_equal(a, b):
+    for k in ("tile0", "n_tiles", "smem_items", "wt0", "n_wt", "n_big",
+              "kept_items", "n_kept"):
+        assert getattr(a, k) == getattr(b, k), k
+    for k in pig._ORDER_FIELDS + ("wt_wid", "wt_p0", "wt_np"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    for oa, ob in zip(a.host, b.host, strict=True):
+        assert oa.keys() == ob.keys()
+        for k in oa:
+            np.testing.assert_array_equal(oa[k], ob[k], err_msg=k)
+
+
+@pytest.mark.parametrize("graph", ["ehr", "ehr 600", "kept_mixed",
+                                   "potts card 128", "coin", "ising16"])
+def test_tables_unchanged_where_the_cut_is(monkeypatch, graph):
+    """Above kmax 2 (the EHR shape at 120 and at 600 candidates, whose
+    class runs pass TILE_ITEMS; the bipartite graph of
+    ``chip_smoke._kept_mixed``; Potts at card 128) and on kmax-2 graphs
+    whose 128-row runs fit ITEM_CUT (coin, Ising), the learn tables equal,
+    array for array, those of the cut at TILE_ITEMS items in runs of
+    TILE_ROWS rows at every kmax."""
+    import chip_smoke
+    from numbskull_tpu_torch.models import ising_color_hint
+    from numbskull_tpu_torch.models import potts_grid as port_potts_grid
+    if graph.startswith("ehr"):
+        cg = port_compile_graph(*chip_smoke.dp_graph(
+            600 if graph == "ehr 600" else 120, 24, 7))
+    elif graph == "kept_mixed":
+        cg = port_compile_graph(*chip_smoke._kept_mixed(8, 8))
+    elif graph == "potts card 128":
+        w, v, f, fm, dm, _ = port_potts_grid(16, 16, card=128, weight=0.25,
+                                             fixed=False)
+        cg = port_compile_graph(w, v, f, fm, domain_mask=dm,
+                                color_hint=ising_color_hint(16, 16))
+    else:
+        cg = compiled_graph_from_reference(dataclasses.asdict(
+            _coin() if graph == "coin" else _ising16()))
+    lt = pig.ItemGridEngine(cg, device="cpu").learn_tables()
+    monkeypatch.setattr(pig, "_cut_tiles", _parent_cut)
+    _tables_equal(lt, pig.ItemGridEngine(cg, device="cpu").learn_tables())
+    if graph == "ehr 600":    # a run of TILE_ROWS class rows is cut
+        t = lt.sweep
+        assert any(t.row_item[t.row0[ci] + pig.TILE_ROWS] -
+                   t.row_item[t.row0[ci]] > pig.TILE_ITEMS and
+                   lt.host[ci]["tl_r0"][1] < pig.TILE_ROWS
+                   for ci in range(t.n_steps)
+                   if t.n_rows[ci] > pig.TILE_ROWS)
+
+
+def test_kmax2_learning_is_deterministic_with_non_dyadic_feature_values():
+    """Two runs of the plain learning on the spouse shape from one seed,
+    featureValues in [0.3, 1.7] (sums that round, in the order the
+    ITEM_CUT tiles fix), give the same weight and chain bits, and the
+    weights move."""
+    import chip_smoke
+    cg = port_compile_graph(*chip_smoke.spouse_shape(
+        160, 7, fv=lambda rng, n: rng.uniform(0.3, 1.7, n)))
+    runs = [pig.ItemGridEngine(cg, device="cpu").learn(
+        3, 1, 4, 0.05, 0.98, LearnParams(regularization=2, reg_param=0.01))
+        for _ in range(2)]
+    assert not torch.equal(runs[0][0], torch.as_tensor(
+        cg.weight_init, dtype=torch.float32))
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("graph", ["spouse", "hub"])
+def test_kmax2_launch_counts_item_form_items(monkeypatch, graph):
+    """A kmax-2 step adds its items to the registry counter
+    ``learn.item_form_items`` where learn_item_kernel takes it (its
+    longest piece at most ITEM_TILE), else 0, from the tables and with no
+    sync: every item of the spouse shape; on the star of 1,100 leaves,
+    all but the hub's, whose 1,100-item row keeps learn_step_kernel."""
+    if graph == "spouse":
+        lt = _spouse_tables("port")
+    else:
+        lt = pig.ItemGridEngine(_star(1100, 2), device="cpu").learn_tables()
+    t = lt.sweep
+    _, launch = _fake_launches(monkeypatch, lt)
+    form = 0
+    for ci in range(t.n_steps):
+        d = launch(ci, ("learn.items", "learn.item_form_items"))
+        n = len(t.item_index[ci])
+        assert d == {"learn.items": n, "learn.item_form_items":
+                     n if lt.smem_items[ci] <= pig.ITEM_TILE else 0}
+        form += d["learn.item_form_items"]
+    if graph == "spouse":
+        assert form == len(lt.it_fv)
+    else:
+        assert form == len(lt.it_fv) - 1100 and max(lt.smem_items) == 1100

@@ -100,7 +100,8 @@ def test_sum_counters_match_the_learn_tables(monkeypatch, graph):
         pig._launch_learn(lt, ci, x, x.clone(), w, 1, 1 << 16, hs)
         c1 = metrics.snapshot()["counters"]
         changed = {k for k in c1 if c1[k] != c0.get(k, 0.0)}
-        assert changed <= set(COUNTERS) | {"learn.items", "learn.kept_items"}
+        assert changed <= set(COUNTERS) | {"learn.items", "learn.kept_items",
+                                           "learn.item_form_items"}
         a, m = lt.wt0[ci], lt.n_wt[ci]
         d = {k: c1.get(k, 0.0) - c0.get(k, 0.0) for k in COUNTERS}
         want = {"learn.sum_weights": m,
