@@ -933,8 +933,9 @@ def phase_kept_form(torch):
     (the benchmark's setting) and under the default parameters; (b) the
     bipartite graphs of ``_kept_mixed`` at cardinality 8, 32 and 40 (the
     KMAX 8, 32 and 128 kernels; a card-128 row is too wide to keep), a
-    step of which has tiles of both forms (a launch of each kernel).
-    Returns the largest difference."""
+    step of which has tiles of both forms (a launch of each kernel);
+    then the forms the entry refuses (``check_form_refusals``). Returns
+    the largest difference."""
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.ops import itemgrid as pig
     from numbskull_tpu_torch.ops.gibbs import LearnParams
@@ -947,9 +948,10 @@ def phase_kept_form(torch):
                              device=DEVICE)
     lt = eng.learn_tables()
     items = [len(i) for i in lt.sweep.item_index]
+    kept = _kept_items(lt)
     log("  dp%d_lf%d: kept items %s of %s a step" % (
-        cand, lfs, lt.kept_items, items))
-    if lt.kept_items != items or eng.cg.kmax != 3:
+        cand, lfs, kept, items))
+    if kept != items or eng.cg.kmax != 3:
         fail("the EHR-shape DP graph is not in the kept form in every step")
     for label, lp in (("l2_non_evidence", LearnParams(
             regularization=2, reg_param=0.1, learn_non_evidence=True)),
@@ -963,9 +965,10 @@ def phase_kept_form(torch):
         eng = pig.ItemGridEngine(compile_graph(w, v, f, fm), device=DEVICE)
         lt = eng.learn_tables()
         items = [len(i) for i in lt.sweep.item_index]
+        kept = _kept_items(lt)
         log("  kept_mixed_card%d: kept items %s of %s a step, tiles %s"
-            % (card, lt.kept_items, items, lt.n_tiles))
-        if not any(0 < k < n for k, n in zip(lt.kept_items, items)):
+            % (card, kept, items, lt.n_tiles))
+        if not any(0 < k < n for k, n in zip(kept, items)):
             fail("kept_mixed_card%d: no step has tiles of both forms" % card)
         worst = max(worst, check_learn_equal(
             torch, "kept_mixed_card%d" % card, eng, l2, burn=1, epochs=3))
@@ -973,8 +976,50 @@ def phase_kept_form(torch):
             torch, "kept_mixed_card%d_non_ev" % card, eng, LearnParams(
                 regularization=1, reg_param=0.01, truncation=4,
                 learn_non_evidence=True), burn=1, epochs=3))
+    check_form_refusals(torch)
     log("  the two forms took %.1f s" % (time.perf_counter() - t0))
     return worst
+
+
+def check_form_refusals(torch):
+    """The learn entry launches only a form the tables can give: tables
+    whose recorded launches are rewritten to `item` at KMAX 8
+    (``_kept_mixed``), to `item` on the hub graph's step whose
+    HUB_FACTORS-item row passes kItemTile, and to `kept` at KMAX 2 are
+    each refused with CUDA error 1 (cudaErrorInvalidValue) before any
+    launch, and the card goes on working."""
+    import dataclasses
+
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    from numbskull_tpu_torch.ops.gibbs import LearnParams
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
+    hub = random_graph(("EQUAL",), "hub", 1)
+    for name, graph, form in (("kept_mixed_card8", _kept_mixed(8, 8), "item"),
+                              ("hub", hub, "item"), ("hub", hub, "kept")):
+        eng = pig.ItemGridEngine(compile_graph(*graph), device=DEVICE)
+        lt = eng.learn_tables()
+        ci = max(range(lt.sweep.n_steps), key=lambda c: lt.smem_items[c])
+        code = pig.LEARN_FORMS.index(form)
+        bad = dataclasses.replace(lt, launches=[
+            [r._replace(form=code) for r in rs] for rs in lt.launches])
+        x = torch.as_tensor(eng.cg.var_init, dtype=torch.int32,
+                            device=DEVICE)
+        w = torch.as_tensor(eng.cg.weight_init, dtype=torch.float32,
+                            device=DEVICE)
+        launches = pig.LEARN_LAUNCHES
+        try:
+            pig.learn_color(bad, ci, x, x.clone(), w, 1, pig.LEARN_EPOCH0,
+                            hs)
+        except RuntimeError as e:
+            if "CUDA error 1" not in str(e) or \
+                    pig.LEARN_LAUNCHES != launches:
+                fail("%s as %s: %s" % (name, form, e))
+            log("  %s step %d (kmax %d, longest piece %d) as %s: refused, "
+                "%s" % (name, ci, lt.sweep.kmax, lt.smem_items[ci], form, e))
+        else:
+            fail("%s as %s was launched" % (name, form))
+    torch.cuda.synchronize()
 
 
 def _ising_one_color():
@@ -1074,11 +1119,19 @@ def _learn_fixtures():
     return out
 
 
+def _kept_items(lt) -> list:
+    """Per step of learn tables ``lt``: the items of its launch in the
+    kept form (LearnTables.launches), 0 where it has none."""
+    from numbskull_tpu_torch.ops.itemgrid import LEARN_FORMS
+    return [sum(r.items for r in rs if LEARN_FORMS[r.form] == "kept")
+            for rs in lt.launches]
+
+
 def learn_launches_per_epoch(lt) -> int:
     """Learn kernel launches of one epoch on these tables: per color with
-    rows, the step kernel (two where a categorical step has tiles of both
-    forms), and the sum kernel when it has items."""
-    return sum(1 + (0 < lt.n_kept[ci] < lt.n_tiles[ci]) + (lt.n_wt[ci] > 0)
+    rows, the step kernel once per form its tiles take (the recorded
+    launches), and the sum kernel when it has items."""
+    return sum(len(lt.launches[ci]) + (lt.n_wt[ci] > 0)
                for ci in range(lt.sweep.n_steps) if lt.sweep.n_rows[ci] > 0)
 
 
@@ -1111,8 +1164,7 @@ def compare_learn(torch, eng, lp, seed=7, burn=2, epochs=5, stepsize=0.05,
             pig.color_step_reference(t, ci, xp, counts, wp, seed, b, False,
                                      pig.BURN_SALT_XOR)
     equal = total = 0
-    for i in range(epochs):
-        hs = pig.learn_step_of(lp, stepsize, decay, i)
+    for i, hs in enumerate(pig.learn_steps(lp, stepsize, decay, epochs)):
         for ci in range(t.n_steps):
             pig.learn_color(lt, ci, xk, xek, wk, seed,
                             i + pig.LEARN_EPOCH0, hs)
@@ -1365,8 +1417,7 @@ def _plain_learn(torch, eng, lp, seed, epochs):
     w = torch.tensor(cg.weight_init, dtype=torch.float32, device=dev)
     x = torch.tensor(cg.var_init, dtype=torch.int32, device=dev)
     xe = x.clone()
-    for i in range(epochs):
-        hs = pig.learn_step_of(lp, 0.1, 0.99, i)
+    for i, hs in enumerate(pig.learn_steps(lp, 0.1, 0.99, epochs)):
         for ci in range(lt.sweep.n_steps):
             pig.learn_color_step_reference(lt, ci, x, xe, w, seed,
                                            i + pig.LEARN_EPOCH0, hs)
@@ -3835,35 +3886,27 @@ def sweep_paths(t):
 
 def learn_paths(lt):
     """{factor code: {learn step kernel}} of learn tables ``lt``: the
-    choice of nsx_learn_step (at kmax 2, where the host cuts tiles at
-    ITEM_CUT items, learn_item_kernel unless a row of more than
-    ITEM_TILE items, a tile of its own, makes the step's longest piece
-    pass it, then learn_step_kernel; above it learn_kept_kernel<KMAX>
-    for the codes of the step's kept tiles, learn_cat_kernel<KMAX> for
-    those of its others)."""
+    kernel of the form the tables record for each tile holding the code
+    (``tl_form``): learn_item_kernel, learn_step_kernel (`row`),
+    learn_kept_kernel<KMAX> or learn_cat_kernel<KMAX>."""
     import numpy as np
 
-    from numbskull_tpu_torch.ops.itemgrid import ITEM_TILE
+    from numbskull_tpu_torch.ops.itemgrid import LEARN_FORMS
     t = lt.sweep
+    k = next(k for k in (8, 32, 128) if t.kmax <= k)
+    names = {"item": "learn_item", "row": "learn_step",
+             "kept": "learn_kept<%d>" % k, "cat": "learn_cat<%d>" % k}
     out = {}
     for ci in range(t.n_steps):
         if t.n_rows[ci] == 0:
             continue
-        if t.kmax <= 2:
-            path = ("learn_item" if lt.smem_items[ci] <= ITEM_TILE
-                    else "learn_step")
-            for c in _step_codes(t, ci):
-                out.setdefault(c, set()).add(path)
-            continue
-        k = next(k for k in (8, 32, 128) if t.kmax <= k)
         o = lt.host[ci]
         ftype = np.asarray(t.plans[ci].it_ftype)[t.item_index[ci]]
         ri = t.row_item[t.row0[ci]:t.row0[ci] + t.n_rows[ci] + 1].cpu()
         ri = (ri - ri[0]).numpy()[np.append(o["tl_r0"], t.n_rows[ci])]
-        for a, b, kept in zip(ri[:-1], ri[1:], o["tl_kept"]):
-            path = "learn_%s<%d>" % ("kept" if kept else "cat", k)
+        for a, b, form in zip(ri[:-1], ri[1:], o["tl_form"]):
             for c in np.unique(ftype[a:b]).tolist():
-                out.setdefault(c, set()).add(path)
+                out.setdefault(c, set()).add(names[LEARN_FORMS[form]])
     return out
 
 

@@ -15,13 +15,15 @@
 // the sweep kernel.
 //
 // How: two launches on one stream per (epoch, color), three where a
-// categorical step has tiles of both forms.
-//   step kernel        learn_item_kernel at KMAX 2 (learn_step_kernel
-//                      for a step with a row of more than kItemTile
-//                      items),
-//                      learn_cat_kernel and learn_kept_kernel at KMAX 8,
-//                      32, 128, for the step's tiles of the re-read and
-//                      of the kept form (see below):
+// categorical step has tiles of both forms. The host gives every tile a
+// form (LearnForm below: ops/itemgrid.build_learn_tables decides, and
+// each launch names the form it runs); the entry obeys it.
+//   step kernel        one launch per form of the step's tiles:
+//                      learn_item_kernel (FORM_ITEM) or learn_step_kernel
+//                      (FORM_ROW, a step with a row of more than
+//                      kItemTile items) at KMAX 2, learn_cat_kernel
+//                      (FORM_CAT, re-read) and learn_kept_kernel
+//                      (FORM_KEPT) at KMAX 8, 32, 128 (see below):
 //                      one block of kTileRows threads per tile, a run of
 //                      at most kTileRows of the color's rows whose items
 //                      fit the shared-memory budget, at KMAX 2 896
@@ -69,8 +71,9 @@
 // inputs; only an item that was not evaluated at a drawn value is
 // evaluated again. That kernel is held to 64 registers, 8 blocks an SM.
 // Only a step with a row of more than kItemTile items (a tile of its
-// own, summed in pieces) runs learn_step_kernel, one thread per row,
-// which reads its items a second time for the gradient. At KMAX 8, 32
+// own, summed in pieces) is in the row form: learn_step_kernel, one
+// thread per row, which reads its items a second time for the
+// gradient. At KMAX 8, 32
 // and 128 the categorical kernels run the tile's items in parallel for
 // both chains' potentials through
 // cat_potentials (itemgrid_common.cuh; every candidate the dense / d1 /
@@ -87,10 +90,11 @@
 // a row in pieces) is re-read: its potentials in the dynamic shared
 // memory, and after every row has drawn each item evaluated at the two
 // drawn values from one more read of its arguments (cat_gradients). The
-// host marks each tile's form in the tables (tl_kept, from
-// ops/itemgrid.kept_tiles); learn_kept_kernel takes the kept tiles and
-// learn_cat_kernel the others, each launched over the step where it has
-// tiles, and a block of the other form's tile returns at once. The
+// host marks each tile's form in the tables (tl_form, FORM_KEPT where
+// ops/itemgrid.kept_tiles keeps it, FORM_CAT elsewhere);
+// learn_kept_kernel takes the kept tiles and learn_cat_kernel the
+// others, each launched over the step where it has tiles, and a block of
+// the other form's tile returns at once. The
 // gradients never leave shared memory: per step the partials are 8 B per
 // (tile, weight), and the sum kernel reads them once.
 //
@@ -137,6 +141,10 @@ constexpr int kSumWidth = 1024;  // threads of a weight-sum block
 constexpr int kItemTile = 1024;  // KMAX 2: items of a tile run in parallel
 constexpr int kMaxSmem = 48 * 1024;
 
+// a learn tile's form, the kernel that takes it (ops/itemgrid.LEARN_FORMS)
+enum LearnForm : int { FORM_CAT = 0, FORM_KEPT = 1, FORM_ITEM = 2,
+                       FORM_ROW = 3 };
+
 struct LearnStep {
   const float* weights;
   const float* it_fv;
@@ -164,8 +172,8 @@ struct Order {
   const int32_t* gr_len;   // (NG) its items
   const int32_t* gr_slot;  // (NG) its partial slot
   const int32_t* perm;     // piece-local items, by (piece, weight, item)
-  const int32_t* tl_kept;  // (NT) 1: the tile is in the kept form; null
-                           // where every tile is the launched kernel's
+  const int32_t* tl_form;  // (NT) the tile's LearnForm; null where every
+                           // tile is the launched kernel's
   float* part_g;           // (NG) partial gradient sums, by slot
   int32_t* part_n;         // (NG) partial counts
   int tile0;               // the step's first tile
@@ -601,7 +609,7 @@ __host__ __device__ constexpr int cat_pot_rows(int K) {
 }
 
 // KMAX 8, 32, 128, the step's tiles in the re-read form (a kept tile is
-// learn_kept_kernel's: the block returns; tl_kept is null in a step with
+// learn_kept_kernel's: the block returns; tl_form is null in a step with
 // none): the tile's rows, cat_pot_rows
 // at a time, each warp a run of them (warp_rows), take both chains'
 // potentials from cat_potentials (items in parallel, each item's
@@ -623,7 +631,7 @@ __global__ void __launch_bounds__(kTileRows, 4)
   __shared__ int s_ri[kTileRows + 1], s_pv[kTileRows], s_ev[kTileRows];
   __shared__ bool s_lrn[kTileRows];
   const int tile = o.tile0 + blockIdx.x;
-  if (o.tl_kept != nullptr && o.tl_kept[tile]) return;
+  if (o.tl_form != nullptr && o.tl_form[tile] != FORM_CAT) return;
   const int tid = threadIdx.x, lane = tid & 31;
   CatWarp<2>& w = sh[tid >> 5];
   const int tr0 = o.tl_r0[tile], tr1 = o.tl_r0[tile + 1], nr = tr1 - tr0;
@@ -770,7 +778,7 @@ __device__ void kept_gradients(const Tables& t, const LearnStep& p, int I0,
   }
 }
 
-// KMAX 8, 32, 128, the step's tiles in the kept form (tl_kept, null in a
+// KMAX 8, 32, 128, the step's tiles in the kept form (tl_form, null in a
 // step with no other; the others are learn_cat_kernel's: the block
 // returns). Each warp takes a
 // quarter of the tile's rows (warp_rows) in runs of as many as fit
@@ -791,7 +799,7 @@ __global__ void __launch_bounds__(kTileRows, 5)
   __shared__ int s_pv[kTileRows], s_ev[kTileRows];
   __shared__ bool s_lrn[kTileRows];
   const int tile = o.tile0 + blockIdx.x;
-  if (o.tl_kept != nullptr && !o.tl_kept[tile]) return;
+  if (o.tl_form != nullptr && o.tl_form[tile] != FORM_KEPT) return;
   const int tid = threadIdx.x, lane = tid & 31;
   const int tr0 = o.tl_r0[tile], tr1 = o.tl_r0[tile + 1], nr = tr1 - tr0;
   const int pc0 = o.tl_pc0[tile], npc = o.tl_pc0[tile + 1] - pc0;
@@ -958,30 +966,37 @@ cudaError_t launch_cat(Kernel kernel, const Tables& t, const LearnStep& p,
   return cudaSuccess;
 }
 
-// shared memory per item: (gradient, counted), and on the item path
-// also both chains' evaluations, the weight, the slot flags and the row;
-// the categorical kernels' potentials share it
+// the kernel of `form`: shared memory per item (gradient, counted), and
+// on the item path also both chains' evaluations, the weight, the slot
+// flags and the row; the categorical kernels' potentials share it. A
+// form that is not of this KMAX, or an item step whose longest piece
+// passes kItemTile, is refused
 template <int KMAX>
 cudaError_t launch_step(const Tables& t, const LearnStep& p, const Order& o,
-                        int n_tiles, bool kept, cudaStream_t stream) {
+                        int n_tiles, int form, cudaStream_t stream) {
   if constexpr (KMAX == 2) {
-    const bool items = o.smem_items <= kItemTile;
+    if ((form != FORM_ITEM && form != FORM_ROW) ||
+        (form == FORM_ITEM && o.smem_items > kItemTile))
+      return cudaErrorInvalidValue;
     const size_t smem =
-        (static_cast<size_t>(o.smem_items) * (items ? 27 : 5) + 15) & ~15;
-    if (items)
+        (static_cast<size_t>(o.smem_items) * (form == FORM_ITEM ? 27 : 5) +
+         15) & ~15;
+    if (form == FORM_ITEM)
       learn_item_kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
     else
       learn_step_kernel<<<n_tiles, kTileRows, smem, stream>>>(t, p, o);
   } else {
+    if (form != FORM_CAT && form != FORM_KEPT) return cudaErrorInvalidValue;
     const size_t pots = sizeof(float) * 2 * cat_pot_rows(p.kmax) *
                         static_cast<size_t>(cat_stride(p.kmax));
     const size_t smem =
         (std::max(pots, static_cast<size_t>(o.smem_items) * 5) + 15) & ~15;
     const cudaError_t e =
-        kept ? launch_cat(learn_kept_kernel<KMAX>, t, p, o, n_tiles, smem,
-                          stream)
-             : launch_cat(learn_cat_kernel<KMAX>, t, p, o, n_tiles, smem,
-                          stream);
+        form == FORM_KEPT
+            ? launch_cat(learn_kept_kernel<KMAX>, t, p, o, n_tiles, smem,
+                         stream)
+            : launch_cat(learn_cat_kernel<KMAX>, t, p, o, n_tiles, smem,
+                         stream);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
@@ -1014,11 +1029,10 @@ const void* const kKernels[] = {
 
 // tile_rows and sum_width must equal the kernels' kTileRows and
 // kSumWidth (the tables were cut for them); anything else is refused.
-// Above kmax 2, kept launches learn_kept_kernel, which takes the step's
-// tiles that tl_kept marks (ops/itemgrid.kept_tiles), and 0
-// learn_cat_kernel, which takes the others: a step with tiles of both
-// forms is two calls. Where every tile of the step takes one form,
-// tl_kept is null, and no block reads it
+// `form` (a LearnForm) names the kernel, which takes the step's tiles
+// that tl_form gives that form: a step with tiles of two forms is two
+// calls. Where every tile of the step takes one form, tl_form is null,
+// and no block reads it
 extern "C" int nsx_learn_step(
     const int32_t* row_vid, const int32_t* row_card, const int32_t* row_upos,
     const int8_t* row_flags, const int32_t* row_item, const int32_t* it_arg,
@@ -1029,9 +1043,9 @@ extern "C" int nsx_learn_step(
     const float* ext_e, const int32_t* tl_r0, const int32_t* tl_pc0,
     const int32_t* pc_g0, const int32_t* pc_perm, const int32_t* gr_off,
     const int32_t* gr_len, const int32_t* gr_slot, const int32_t* perm,
-    const int32_t* tl_kept, float* part_g, int32_t* part_n, int row0,
+    const int32_t* tl_form, float* part_g, int32_t* part_n, int row0,
     int tile0, int n_tiles, int tile_rows, int piece_items, int smem_items, int kmax, int seed,
-    int salt16, int lrn_all, int kext, int kept, void* stream) {
+    int salt16, int lrn_all, int kext, int form, void* stream) {
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if ((ext_p != nullptr || ext_e != nullptr) && kext < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1045,19 +1059,18 @@ extern "C" int nsx_learn_step(
                     ext_e, row0, kmax, static_cast<uint32_t>(seed),
                     static_cast<uint32_t>(salt16), lrn_all, kext};
   const Order o{tl_r0, tl_pc0,  pc_g0,   pc_perm,     gr_off,
-                gr_len, gr_slot, perm,    tl_kept,     part_g,
+                gr_len, gr_slot, perm,    tl_form,     part_g,
                 part_n, tile0,   piece_items, smem_items};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool k = kept != 0;
   if (kmax <= 2)
-    return static_cast<int>(launch_step<2>(t, p, o, n_tiles, k, s));
+    return static_cast<int>(launch_step<2>(t, p, o, n_tiles, form, s));
   if (kmax <= 8)
-    return static_cast<int>(launch_step<8>(t, p, o, n_tiles, k, s));
+    return static_cast<int>(launch_step<8>(t, p, o, n_tiles, form, s));
   if (kmax <= 32)
-    return static_cast<int>(launch_step<32>(t, p, o, n_tiles, k, s));
+    return static_cast<int>(launch_step<32>(t, p, o, n_tiles, form, s));
   if (kmax <= 128)
-    return static_cast<int>(launch_step<128>(t, p, o, n_tiles, k, s));
+    return static_cast<int>(launch_step<128>(t, p, o, n_tiles, form, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -91,6 +92,10 @@ RB = 1024            # positions per uniform block
 
 MAPS = ("row", "tile")
 DRAWS = ("cdf", "vec", "sigmoid2")
+# a learn tile's form, the kernel that takes it (build_learn_tables
+# decides; csrc/itemgrid_learn.cu LearnForm): learn_cat_kernel (re-read),
+# learn_kept_kernel, learn_item_kernel, learn_step_kernel (a thread a row)
+LEARN_FORMS = ("cat", "kept", "item", "row")
 
 ROW_UPDATE = 1       # row_flags bits (csrc/itemgrid_common.cuh)
 ROW_TALLY = 2
@@ -104,10 +109,11 @@ LEARN_EPOCH0 = 1 << 16          # salt epoch of learning epoch 0
 TILE_ROWS = 128      # rows per learn tile: threads of a step block
 TILE_ITEMS = 4096    # items per piece: a tile's shared-memory budget
 ITEM_TILE = 1024     # kmax 2: a step whose longest piece holds at most
-#                      this many items runs learn_item_kernel (kItemTile)
-ITEM_CUT = 896       # kmax 2: a learn tile's items at most: under
-#                      ITEM_TILE, so that 8 blocks of learn_item_kernel
-#                      (27 B of shared memory an item) fit an H100 SM, not 7
+#                      this many items is in the `item` form (kItemTile)
+ITEM_CUT = 896       # kmax 2: a learn tile's items at most: under the
+#                      item form's 1,024, so that 8 blocks of
+#                      learn_item_kernel (27 B of shared memory an item)
+#                      fit an H100 SM, not 7
 SUM_WIDTH = 1024     # threads of a weight-sum block: a weight with more
 #                      partials than this takes one, any other a warp
 WARP = 32
@@ -935,15 +941,16 @@ class LearnTables:
     ``sweep`` is the tables under the learn schedule (every step `row`
     and `cdf`; the tensors are shared). The rest fix the order in which
     a step's gradients sum (:func:`build_learn_tables`): its rows are cut
-    into tiles (``tl_*``; at kmax 2 of at most ITEM_CUT items, so that
-    learn_item_kernel takes every step without a row of more than
-    ITEM_TILE), a tile's items into pieces of at most TILE_ITEMS
+    into tiles (``tl_*``; at kmax 2 of at most ITEM_CUT items), a tile's
+    items into pieces of at most TILE_ITEMS
     (``pc_*``), a piece's items into one group per weight
     (``gr_*``; listed through ``perm`` when the piece holds more than one
     weight), each group with a partial slot (``part_g``, ``part_n``),
     slots weight-major with tiles in row order; ``wt_*`` name, per step,
     each weight with items and its run of slots, the ``n_big`` weights
-    with more than SUM_WIDTH slots first."""
+    with more than SUM_WIDTH slots first. Each tile has a form, the step
+    kernel that takes it (``tl_form``, LEARN_FORMS), and ``launches``
+    lists a step's launches, one per form its tiles take."""
 
     sweep: SweepTables
     it_fv: torch.Tensor        # (I,) float32 featureValue
@@ -956,8 +963,7 @@ class LearnTables:
     gr_len: torch.Tensor       # (NG,) int32 items
     gr_slot: torch.Tensor      # (NG,) int32 partial slot
     perm: torch.Tensor         # (NL,) int32 piece-local items by weight
-    tl_kept: torch.Tensor      # (NT,) int32 1: the tile is in the kept form
-    #                            (kept_tiles)
+    tl_form: torch.Tensor      # (NT,) int32 the tile's form (LEARN_FORMS)
     wt_wid: torch.Tensor       # (NW,) int32 weight id
     wt_p0: torch.Tensor        # (NW,) int32 first partial slot
     wt_np: torch.Tensor        # (NW,) int32 partial slots
@@ -969,16 +975,24 @@ class LearnTables:
     wt0: list                  # per step: first weight entry
     n_wt: list                 # per step: weight entries
     n_big: list                # per step: entries summed by a block
-    kept_items: list           # per step: items of its kept tiles
-    n_kept: list               # per step: kept tiles
+    launches: list             # per step: its LearnLaunch records, by form
     host: list                 # per step: its order tables, local to it
-    #                            (numpy, from _step_order, and tl_kept)
+    #                            (numpy, from _step_order, and tl_form)
     ptrs: dict = dataclasses.field(default_factory=dict)
     _plain: dict = dataclasses.field(default_factory=dict)
 
 
+class LearnLaunch(typing.NamedTuple):
+    """One step-kernel launch of a learn step: the form (index into
+    LEARN_FORMS) of the tiles it takes, their number and their items."""
+
+    form: int
+    tiles: int
+    items: int
+
+
 _ORDER_FIELDS = ("tl_r0", "tl_pc0", "pc_g0", "pc_perm", "gr_off", "gr_len",
-                 "gr_slot", "perm", "tl_kept", "part_g", "part_n")
+                 "gr_slot", "perm", "tl_form", "part_g", "part_n")
 
 
 def _cut_tiles(counts: np.ndarray, kmax: int) -> np.ndarray:
@@ -1097,15 +1111,15 @@ def kept_terms(counts, cards, kmax: int) -> np.ndarray:
 
 def kept_tiles(o: dict, counts: np.ndarray, cards: np.ndarray,
                kmax: int) -> np.ndarray:
-    """Which tiles of one step (order tables ``o`` from
+    """Which tiles of one step above kmax 2 (order tables ``o`` from
     :func:`_step_order`, rows of ``counts`` items and cardinality
     ``cards``) the categorical learn step takes in the kept form, its
-    gradients from the evaluations its potential pass kept: above kmax 2,
-    a tile of at most one piece whose every row takes at most
-    KEPT_ROW_TERMS (:func:`kept_terms`). ``learn_kept_kernel`` takes
-    these tiles, ``learn_cat_kernel`` the others."""
+    gradients from the evaluations its potential pass kept: a tile of at
+    most one piece whose every row takes at most KEPT_ROW_TERMS
+    (:func:`kept_terms`). ``learn_kept_kernel`` takes these tiles,
+    ``learn_cat_kernel`` the others."""
     ts = o["tl_r0"]
-    if kmax <= 2 or not len(ts):
+    if not len(ts):
         return np.zeros(len(ts), bool)
     fits = np.logical_and.reduceat(kept_terms(counts, cards, kmax) <=
                                    KEPT_ROW_TERMS, ts)
@@ -1114,7 +1128,10 @@ def kept_tiles(o: dict, counts: np.ndarray, cards: np.ndarray,
 
 
 def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
-    """The learn tables of ``t`` on its device (see LearnTables)."""
+    """The learn tables of ``t`` on its device (see LearnTables), with
+    the form of every tile: at kmax 2 a step's every tile is `item` where
+    its longest piece holds at most ITEM_TILE items, else `row`; above
+    it, :func:`kept_tiles` marks each tile `kept` or `cat`."""
     dev = t.device
     fv = [np.asarray(p.it_fv)[iv] for p, iv in zip(t.plans, t.item_index)]
     row_item = t.row_item.cpu().numpy().astype(np.int64)
@@ -1122,7 +1139,7 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
     parts = {k: [] for k in _ORDER_FIELDS[:-2] + ("wt_wid", "wt_p0",
                                                   "wt_np")}
     lists = {k: [] for k in ("tile0", "n_tiles", "smem_items", "wt0",
-                             "n_wt", "n_big", "kept_items", "n_kept")}
+                             "n_wt", "n_big", "launches")}
     nt = npc = ng = nl = nw = 0
     steps = []
     for ci in range(t.n_steps):
@@ -1131,8 +1148,16 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
             np.int64)
         counts = np.diff(row_item[lo:lo + n + 1])
         o = _step_order(counts, wl, t.kmax)
-        kept = o["tl_kept"] = kept_tiles(o, counts, row_card[lo:lo + n],
-                                         t.kmax)
+        ts = o["tl_r0"]
+        if t.kmax <= 2:
+            form = np.full(len(ts), LEARN_FORMS.index(
+                "item" if o["smem_items"] <= ITEM_TILE else "row"))
+        else:
+            form = np.where(kept_tiles(o, counts, row_card[lo:lo + n],
+                                       t.kmax), LEARN_FORMS.index("kept"),
+                            LEARN_FORMS.index("cat"))
+        o["tl_form"] = form
+        items = np.add.reduceat(counts, ts) if len(ts) else counts[:0]
         steps.append(o)
         parts["tl_r0"].append(lo + o["tl_r0"])
         parts["tl_pc0"].append(npc + o["tl_pc0"])
@@ -1143,16 +1168,16 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
         parts["gr_len"].append(o["gr_len"])
         parts["gr_slot"].append(ng + o["gr_slot"])
         parts["perm"].append(o["perm"])
-        parts["tl_kept"].append(kept)
+        parts["tl_form"].append(form)
         parts["wt_wid"].append(o["wt_wid"])
         parts["wt_p0"].append(ng + o["wt_p0"])
         parts["wt_np"].append(o["wt_np"])
-        for k, v in (("tile0", nt), ("n_tiles", len(o["tl_r0"])),
+        for k, v in (("tile0", nt), ("n_tiles", len(ts)),
                      ("smem_items", o["smem_items"]), ("wt0", nw),
                      ("n_wt", len(o["wt_wid"])), ("n_big", o["n_big"]),
-                     ("kept_items", int(np.add.reduceat(counts, o["tl_r0"])[
-                         kept].sum()) if kept.any() else 0),
-                     ("n_kept", int(kept.sum()))):
+                     ("launches", [LearnLaunch(int(f), int((form == f).sum()),
+                                               int(items[form == f].sum()))
+                                   for f in np.unique(form)])):
             lists[k].append(v)
         nt += len(o["tl_r0"])
         npc += len(o["pc_start"])
@@ -1193,13 +1218,13 @@ def build_learn_tables(t: SweepTables, weight_fixed) -> LearnTables:
     return lt
 
 
-@dataclasses.dataclass(frozen=True)
-class LearnStep:
+class LearnStep(typing.NamedTuple):
     """One learning epoch's update constants: float32 values (exact as
-    Python floats), computed on the host once per epoch in torch
-    float32 as the TPU kernel computes them (itemgrid_pallas.py:
-    2500-2518, 2765-2766), and shared by the kernel and the plain
-    version."""
+    Python floats), computed on the host for a call's epochs at once
+    (:func:`learn_steps`) in torch float32 as the TPU kernel computes
+    them (itemgrid_pallas.py: 2500-2518, 2765-2766), and shared by the
+    kernel and the plain version. A tuple, not a dataclass: a call builds
+    one an epoch before its first launch, while the card waits."""
 
     step: float        # step0 * exp(f32(i) * log(decay))
     shrink: float      # L2: 1 / fma(reg_param, step, 1)
@@ -1233,22 +1258,21 @@ def fma32(a, b, c) -> torch.Tensor:
     return s.float()
 
 
-def learn_step_of(lp: LearnParams, stepsize: float, decay: float,
-                  i: int) -> LearnStep:
-    """The constants of learning epoch ``i``."""
+def learn_steps(lp: LearnParams, stepsize: float, decay: float,
+                epochs: int) -> list:
+    """The constants of learning epochs 0 .. ``epochs`` - 1, one
+    LearnStep each, from one pass over the epochs' float32 tensors."""
     def f(v):
         return torch.tensor(v, dtype=torch.float32)
 
-    step = f(stepsize) * torch.exp(f(float(i)) * torch.log(f(decay)))
+    step = f(stepsize) * torch.exp(
+        torch.arange(epochs, dtype=torch.float32) * torch.log(f(decay)))
     reg = f(lp.reg_param)
-    return LearnStep(
-        step=float(step),
-        shrink=float(f(1.0) / fma32(reg, step, 1.0)),
-        l1d=float(reg * step * f(float(lp.truncation))),
-        thresh=float(f(1.0 / lp.truncation)),
-        regularization=int(lp.regularization),
-        mean=lp.grad_agg == "mean",
-        learn_non_evidence=bool(lp.learn_non_evidence))
+    rest = (float(f(1.0 / lp.truncation)), int(lp.regularization),
+            lp.grad_agg == "mean", bool(lp.learn_non_evidence))
+    return [LearnStep(s, sh, d, *rest) for s, sh, d in zip(
+        step.tolist(), (f(1.0) / fma32(reg, step, 1.0)).tolist(),
+        (reg * step * f(float(lp.truncation))).tolist())]
 
 
 def _coin_salt(epoch: int, ci: int) -> int:
@@ -1506,10 +1530,10 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                        xe: torch.Tensor, w: torch.Tensor, seed: int,
                        epoch: int, hs: LearnStep, send=None,
                        send_e=None, ext_p=None, ext_e=None) -> bool:
-    """The step launch of one learn step on the current stream (both
+    """The step launches of one learn step on the current stream (both
     chains' draws, and each tile's gradient sums into the partial
-    slots), two where a categorical step has tiles of both forms
-    (:func:`kept_tiles`); returns False, launching nothing, for a step with no rows. A
+    slots), one per form its tiles take (``LearnTables.launches``);
+    returns False, launching nothing, for a step with no rows. A
     conflicting step reads from snapshots of the chains. ``ext_p`` /
     ``ext_e`` (V, K'), of one width, add external potentials to the
     free / clamped chain before the draws."""
@@ -1533,29 +1557,27 @@ def _launch_learn_rows(lt: LearnTables, ci: int, x: torch.Tensor,
                          % t.device)
     p = lt.ptrs
     xr, xer = (x.clone(), xe.clone()) if t.conflict[ci] else (x, xe)
-    # a launch for each form the step's tiles take (kept_tiles): each
-    # kernel takes its own tiles, which tl_kept marks where the step has
-    # both (null, no block reads it)
-    n_kept = lt.n_kept[ci]
+    # each form's kernel takes its own tiles, which tl_form marks where
+    # the step has two forms (null, no block reads it)
+    launches = lt.launches[ci]
     order = [p[k] for k in _ORDER_FIELDS]
-    if not 0 < n_kept < lt.n_tiles[ci]:
-        order[_ORDER_FIELDS.index("tl_kept")] = None
-    for kept in [k for k, n in ((0, lt.n_tiles[ci] - n_kept), (1, n_kept))
-                 if n]:
+    if len(launches) == 1:
+        order[_ORDER_FIELDS.index("tl_form")] = None
+    for r in launches:
         _raise_if(_kernel_lib("itemgrid_learn").nsx_learn_step(
             *t.ptrs, p["it_fv"], _ptr(w), _ptr(x), _ptr(xe), _ptr(xr),
             _ptr(xer), send_p, send_e_p, ext_pp, ext_ep,
             *order, t.row0[ci], lt.tile0[ci],
             lt.n_tiles[ci], TILE_ROWS, TILE_ITEMS, lt.smem_items[ci], t.kmax,
             seed, salt16_of(epoch, ci), int(hs.learn_non_evidence), kext,
-            kept, _stream(t.device)), "learn step kernel")
+            r.form, _stream(t.device)), "learn step kernel")
         LEARN_LAUNCHES += 1
         EXT_LEARN_LAUNCHES += ext_p is not None or ext_e is not None
-    metrics.add("learn.kept_items", lt.kept_items[ci])
-    metrics.add("learn.items", len(t.item_index[ci]))
-    if t.kmax <= 2:    # learn_item_kernel unless a row is over ITEM_TILE
-        metrics.add("learn.item_form_items", len(t.item_index[ci]) if
-                    lt.smem_items[ci] <= ITEM_TILE else 0)
+    items = {LEARN_FORMS[r.form]: r.items for r in launches}
+    metrics.add("learn.kept_items", items.get("kept", 0))
+    metrics.add("learn.items", sum(items.values()))
+    if t.kmax <= 2:
+        metrics.add("learn.item_form_items", items.get("item", 0))
     return True
 
 
@@ -1569,9 +1591,8 @@ def _launch_learn(lt: LearnTables, ci: int, x: torch.Tensor,
                   xe: torch.Tensor, w: torch.Tensor, seed: int, epoch: int,
                   hs: LearnStep, ext_p=None, ext_e=None) -> None:
     """The CUDA launches of one learn step on the current stream, step
-    (two where a categorical step has tiles of both forms) and sum; a
-    launch with no rows or weights to work on is skipped
-    and not counted."""
+    (one per form its tiles take) and sum; a launch with no rows or
+    weights to work on is skipped and not counted."""
     global LEARN_LAUNCHES
     if not _launch_learn_rows(lt, ci, x, xe, w, seed, epoch, hs,
                               ext_p=ext_p, ext_e=ext_e) or \
@@ -1814,8 +1835,7 @@ class ItemGridEngine:
                     sweep(lt.sweep, ci, x, counts, w, seed, b, False,
                           BURN_SALT_XOR, ext=ext_p)
         learn_step = learn_color_step_reference if plain else learn_color
-        for i in range(epochs):
-            hs = learn_step_of(lp, stepsize, decay, i)
+        for i, hs in enumerate(learn_steps(lp, stepsize, decay, epochs)):
             for ci in range(lt.sweep.n_steps):
                 learn_step(lt, ci, x, xe, w, seed, i + LEARN_EPOCH0, hs,
                            ext_p, ext_e)

@@ -374,8 +374,7 @@ class MultiChipItemGridEngine:
                                      seeds[j], b, False, pig.BURN_SALT_XOR,
                                      None, sends[j])
                     self._exchange(fns, ci, pay, sends, xs)
-        for i in range(epochs):
-            hs = pig.learn_step_of(lp, stepsize, decay, i)
+        for i, hs in enumerate(pig.learn_steps(lp, stepsize, decay, epochs)):
             epoch = i + pig.LEARN_EPOCH0
             for ci, rows in enumerate(self.rows):
                 rs = rows.rs

@@ -188,11 +188,11 @@ def test_learn_step_constants_match_xla():
     n_equal = n_all = 0
     for step0, decay in ((0.1, 0.99), (0.05, 0.95), (0.4, 0.98),
                          (0.05, 0.01 ** (1.0 / 200)), (0.1, 1.0)):
+        steps = pig.learn_steps(LearnParams(), step0, decay, 1001)
         for i in (0, 1, 7, 63, 149, 1000):
             s = np.float32(step_of(jnp.float32(step0), jnp.float32(decay),
                                    jnp.int32(i)))
-            got = np.float32(pig.learn_step_of(LearnParams(), step0, decay,
-                                               i).step)
+            got = np.float32(steps[i].step)
             tol = 2.0 ** -22 * (2 + abs(i * np.log(decay)))
             assert abs(float(got) - float(s)) <= tol * float(s), \
                 (step0, decay, i, got, s)
@@ -205,6 +205,56 @@ def test_learn_step_constants_match_xla():
             assert np.float32(sh) == np.float32(
                 shrink_of(s, jnp.float32(1e-4))), (step0, decay, i)
     assert n_equal >= n_all * 2 // 3
+
+
+@pytest.mark.parametrize("decay", [0.95, 0.999])
+@pytest.mark.parametrize("reg", ["L1", "L2"])
+def test_learn_steps_over_a_call_match_xla(decay, reg):
+    """A 300-epoch call's constants from one vectorised pass: at every
+    epoch the step size has the bits of the epoch's own float32 formula
+    (0-d tensors, one epoch at a time) and is within
+    test_learn_step_constants_match_xla's tolerance of XLA's, and what
+    the update derives from it (the L2 shrink, the L1 truncation and
+    threshold) has XLA's bits given that step."""
+    import jax
+    import jax.numpy as jnp
+
+    @jax.jit
+    def step_of(step0, decay, i):
+        return step0 * jnp.exp(i.astype(jnp.float32) * jnp.log(decay))
+
+    @jax.jit
+    def update_of(step, reg_param, truncation):
+        # itemgrid_pallas.py:2505-2511, fmas contracted as there
+        return (1.0 / (1.0 + reg_param * step),
+                reg_param * step * truncation, 1.0 / truncation)
+
+    lp = LearnParams(regularization=1 if reg == "L1" else 2, reg_param=0.01,
+                     truncation=4)
+    step0 = 0.05
+    steps = pig.learn_steps(lp, step0, decay, 300)
+    assert len(steps) == 300
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32)
+    n_equal = 0
+    for i, hs in enumerate(steps):
+        one = f(step0) * torch.exp(f(float(i)) * torch.log(f(decay)))
+        assert np.float32(hs.step).view(np.int32) == \
+            np.float32(one).view(np.int32), i
+        s = np.float32(step_of(jnp.float32(step0), jnp.float32(decay),
+                               jnp.int32(i)))
+        tol = 2.0 ** -22 * (2 + abs(i * np.log(decay)))
+        assert abs(hs.step - float(s)) <= tol * float(s), (i, hs.step, s)
+        n_equal += int(np.float32(hs.step) == s)
+        shrink, l1d, thresh = (np.float32(v) for v in update_of(
+            jnp.float32(hs.step), jnp.float32(lp.reg_param),
+            jnp.float32(lp.truncation)))
+        assert (np.float32(hs.shrink), np.float32(hs.l1d),
+                np.float32(hs.thresh)) == (shrink, l1d, thresh), i
+        assert (hs.regularization, hs.mean, hs.learn_non_evidence) == \
+            (lp.regularization, True, False)
+    assert n_equal >= 2 * len(steps) // 3
 
 
 def _round_f32(q: Fraction) -> np.float32:
@@ -404,16 +454,29 @@ def _tile_kept(lt, ci, tile: int) -> bool:
     return True
 
 
+KEPT, CAT = pig.LEARN_FORMS.index("kept"), pig.LEARN_FORMS.index("cat")
+ITEM, ROW = pig.LEARN_FORMS.index("item"), pig.LEARN_FORMS.index("row")
+
+
+def _form_items(lt, ci, form: int) -> int:
+    """The items of step ``ci``'s launch in ``form``
+    (``LearnTables.launches``), 0 where it has none."""
+    return sum(r.items for r in lt.launches[ci] if r.form == form)
+
+
 def _kept_by_tile(lt, ci) -> int:
     """The items of step ``ci``'s kept tiles, by ``_tile_kept``; the
-    tables mark the same tiles kept (host and device ``tl_kept``)."""
+    tables give the same tiles the kept form (host and device
+    ``tl_form``) and record a launch of that many."""
     o, t = lt.host[ci], lt.sweep
     row_item = t.row_item.numpy()
     rows = t.row0[ci] + np.append(o["tl_r0"], t.n_rows[ci])
     kept = [_tile_kept(lt, ci, k) for k in range(len(o["tl_r0"]))]
-    assert o["tl_kept"].tolist() == kept == lt.tl_kept[
-        lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]].bool().tolist()
-    assert lt.n_kept[ci] == sum(kept)
+    forms = lt.tl_form[lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]].tolist()
+    assert o["tl_form"].tolist() == forms
+    assert [f == KEPT for f in forms] == kept
+    assert sum(r.tiles for r in lt.launches[ci] if r.form == KEPT) == \
+        sum(kept)
     return sum(int(row_item[rows[k + 1]] - row_item[rows[k]])
                for k in range(len(o["tl_r0"])) if kept[k])
 
@@ -432,11 +495,11 @@ def test_kept_form_takes_every_ehr_step():
     tile-by-tile rule counts them."""
     lt = _ehr_tiny()
     t = lt.sweep
-    assert t.kmax == 3 and len(lt.kept_items) == t.n_steps == 3
+    assert t.kmax == 3 and len(lt.launches) == t.n_steps == 3
     for ci in range(t.n_steps):
         n = len(t.item_index[ci])
-        assert lt.kept_items[ci] == n == _kept_by_tile(lt, ci) > 0
-        assert lt.n_kept[ci] == lt.n_tiles[ci]
+        assert _form_items(lt, ci, KEPT) == n == _kept_by_tile(lt, ci) > 0
+        assert lt.launches[ci] == [(KEPT, lt.n_tiles[ci], n)]
 
 
 def test_kept_form_leaves_wide_rows_to_the_re_read_form():
@@ -454,14 +517,16 @@ def test_kept_form_leaves_wide_rows_to_the_re_read_form():
     lt = pig.ItemGridEngine(port_compile_graph(
         w, v, f, fm, domain_mask=dm, color_hint=ising_color_hint(16, 16)),
         device="cpu").learn_tables()
-    assert lt.sweep.kmax == 128 and lt.kept_items == [0, 0]
-    assert lt.n_kept == [0, 0] and not lt.tl_kept.any()
+    assert lt.sweep.kmax == 128 and lt.sweep.n_steps == 2
+    assert [_form_items(lt, ci, KEPT) for ci in range(2)] == [0, 0]
+    assert (lt.tl_form == CAT).all()
+    assert {r.form for rs in lt.launches for r in rs} == {CAT}
     lt = pig.ItemGridEngine(port_compile_graph(*chip_smoke._kept_mixed(
         8, 8)), device="cpu").learn_tables()
     t = lt.sweep
     mixed = 0
     for ci in range(t.n_steps):
-        assert lt.kept_items[ci] == _kept_by_tile(lt, ci)
+        assert _form_items(lt, ci, KEPT) == _kept_by_tile(lt, ci)
         o = lt.host[ci]
         kept = [_tile_kept(lt, ci, k) for k in range(len(o["tl_r0"]))]
         rows = t.row_vid[t.row0[ci]:t.row0[ci] + t.n_rows[ci]].numpy()
@@ -469,7 +534,8 @@ def test_kept_form_leaves_wide_rows_to_the_re_read_form():
         for r in wide:   # their tiles are re-read
             assert not kept[np.searchsorted(o["tl_r0"], r, "right") - 1]
         mixed += any(kept) and not all(kept)
-    assert mixed and 0 < sum(lt.kept_items) < len(lt.it_fv)
+    assert mixed and 0 < sum(_form_items(lt, ci, KEPT) for ci in range(
+        t.n_steps)) < len(lt.it_fv)
     w, v, f, fm, dm, _ = coin_model(300, 0.8, -0.5, 0.4, evidence=True,
                                     fixed=False, seed=3)
     coin = pig.ItemGridEngine(port_compile_graph(w, v, f, fm,
@@ -477,8 +543,9 @@ def test_kept_form_leaves_wide_rows_to_the_re_read_form():
                               device="cpu").learn_tables()
     star = pig.ItemGridEngine(_star(5000, 2), device="cpu").learn_tables()
     for kmax2 in (coin, star):
-        assert kmax2.sweep.kmax == 2 and not kmax2.tl_kept.any()
-        assert kmax2.kept_items == kmax2.n_kept == [0] * kmax2.sweep.n_steps
+        assert kmax2.sweep.kmax == 2 and not (kmax2.tl_form == KEPT).any()
+        assert [_form_items(kmax2, ci, KEPT) for ci in range(
+            kmax2.sweep.n_steps)] == [0] * kmax2.sweep.n_steps
         for ci in range(kmax2.sweep.n_steps):
             assert _kept_by_tile(kmax2, ci) == 0
 
@@ -513,7 +580,7 @@ def _fake_launches(monkeypatch, lt):
         "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + pig._ORDER_FIELDS)})
     x = torch.zeros(t.n_vars, dtype=torch.int32)
     w = torch.zeros(t.n_weights, dtype=torch.float32)
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
 
     def launch(ci, keys):
         c0 = metrics.snapshot()["counters"]
@@ -528,19 +595,20 @@ def test_learn_launch_counts_items(monkeypatch, graph):
     """Each learn step adds its items to the registry counter
     ``learn.items`` and its kept tiles' items to ``learn.kept_items``,
     from the tables and with no sync, and launches the step kernel once
-    for each form its tiles take (kept flag 0: learn_cat_kernel, 1:
-    learn_kept_kernel), re-read first, the tiles' forms (``tl_kept``)
-    passed only to a step of both (a fake library stands in for the
-    card's, CPU tensors for its memory): over an epoch, every item once.
-    The EHR shape's steps are kept, one launch each; the bipartite graph
-    of ``chip_smoke._kept_mixed`` at card 8 has a step of both forms."""
+    for each form its tiles take (the ``form`` argument: `cat`,
+    learn_cat_kernel, or `kept`, learn_kept_kernel), re-read first, the
+    tiles' forms (``tl_form``) passed only to a step of both (a fake
+    library stands in for the card's, CPU tensors for its memory): over
+    an epoch, every item once. The EHR shape's steps are kept, one
+    launch each; the bipartite graph of ``chip_smoke._kept_mixed`` at
+    card 8 has a step of both forms."""
     import chip_smoke
     lt = _ehr_tiny() if graph == "ehr" else pig.ItemGridEngine(
         port_compile_graph(*chip_smoke._kept_mixed(8, 8)),
         device="cpu").learn_tables()
     t = lt.sweep
     fake, launch = _fake_launches(monkeypatch, lt)
-    at = len(pig._TABLE_FIELDS) + 10 + pig._ORDER_FIELDS.index("tl_kept")
+    at = len(pig._TABLE_FIELDS) + 10 + pig._ORDER_FIELDS.index("tl_form")
     total = kept = 0
     forms = []
     for ci in range(t.n_steps):
@@ -550,18 +618,18 @@ def test_learn_launch_counts_items(monkeypatch, graph):
                      "learn.kept_items": _kept_by_tile(lt, ci)}
         total += d["learn.items"]
         kept += d["learn.kept_items"]
-        # the kept flag before the stream
+        # the form before the stream
         forms.append([a[-2] for a in fake.steps[n0:]])
-        assert forms[-1] == [k for k, n in (
-            (0, lt.n_tiles[ci] - lt.n_kept[ci]), (1, lt.n_kept[ci])) if n]
+        assert forms[-1] == sorted({KEPT if _tile_kept(lt, ci, k) else CAT
+                                    for k in range(lt.n_tiles[ci])})
         assert {a[at] for a in fake.steps[n0:]} == {
-            lt.ptrs["tl_kept"] if len(forms[-1]) == 2 else None}
+            lt.ptrs["tl_form"] if len(forms[-1]) == 2 else None}
     assert total == len(lt.it_fv) and 0 < kept <= total
     assert pig.LEARN_LAUNCHES == len(fake.steps) + t.n_steps
     if graph == "ehr":
-        assert forms == [[1]] * t.n_steps and kept == total
+        assert forms == [[KEPT]] * t.n_steps and kept == total
     else:
-        assert [0, 1] in forms and kept < total
+        assert [CAT, KEPT] in forms and kept < total
 
 
 def _star(n_leaves: int, seed: int):
@@ -682,7 +750,7 @@ def test_max_colors_marks_conflicting_steps():
     assert torch.equal(x, want)
 
     lt = e1.learn_tables()
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
     xa, xea, wa = x0.clone(), x0.clone(), w0.clone()
     pig.learn_color_step_reference(lt, 0, xa, xea, wa, 5, 1 << 16, hs)
     assert not torch.equal(wa, w0)
@@ -698,7 +766,7 @@ def test_learn_wrapper_devices_and_launch_counts():
     eng = pig.ItemGridEngine(cg, device="cpu")
     lt = eng.learn_tables()
     assert lt.ptrs == {}                 # not built for the kernel
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
     x = torch.zeros(cg.n_vars, dtype=torch.int32, device="meta")
     w = torch.zeros(cg.n_weights, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -859,7 +927,7 @@ def _parent_cut(counts, kmax):
 
 def _tables_equal(a, b):
     for k in ("tile0", "n_tiles", "smem_items", "wt0", "n_wt", "n_big",
-              "kept_items", "n_kept"):
+              "launches"):
         assert getattr(a, k) == getattr(b, k), k
     for k in pig._ORDER_FIELDS + ("wt_wid", "wt_p0", "wt_np"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
@@ -925,25 +993,101 @@ def test_kmax2_learning_is_deterministic_with_non_dyadic_feature_values():
 
 @pytest.mark.parametrize("graph", ["spouse", "hub"])
 def test_kmax2_launch_counts_item_form_items(monkeypatch, graph):
-    """A kmax-2 step adds its items to the registry counter
-    ``learn.item_form_items`` where learn_item_kernel takes it (its
-    longest piece at most ITEM_TILE), else 0, from the tables and with no
-    sync: every item of the spouse shape; on the star of 1,100 leaves,
-    all but the hub's, whose 1,100-item row keeps learn_step_kernel."""
+    """A kmax-2 step is one launch in the `item` form (learn_item_kernel)
+    where its longest piece holds at most ITEM_TILE items, else in the
+    `row` form (learn_step_kernel), with no ``tl_form``, and adds its
+    items to the registry counter ``learn.item_form_items`` in the item
+    form, else 0, from the tables and with no sync: every item of the
+    spouse shape; on the star of 1,100 leaves, all but the hub's, whose
+    1,100-item row keeps learn_step_kernel."""
     if graph == "spouse":
         lt = _spouse_tables("port")
     else:
         lt = pig.ItemGridEngine(_star(1100, 2), device="cpu").learn_tables()
     t = lt.sweep
-    _, launch = _fake_launches(monkeypatch, lt)
+    fake, launch = _fake_launches(monkeypatch, lt)
+    at = len(pig._TABLE_FIELDS) + 10 + pig._ORDER_FIELDS.index("tl_form")
     form = 0
     for ci in range(t.n_steps):
+        n0 = len(fake.steps)
         d = launch(ci, ("learn.items", "learn.item_form_items"))
         n = len(t.item_index[ci])
+        item = lt.smem_items[ci] <= pig.ITEM_TILE
         assert d == {"learn.items": n, "learn.item_form_items":
-                     n if lt.smem_items[ci] <= pig.ITEM_TILE else 0}
+                     n if item else 0}
+        assert [(a[-2], a[at]) for a in fake.steps[n0:]] == [
+            (ITEM if item else ROW, None)]
         form += d["learn.item_form_items"]
     if graph == "spouse":
         assert form == len(lt.it_fv)
     else:
         assert form == len(lt.it_fv) - 1100 and max(lt.smem_items) == 1100
+
+
+def _forms_graph(graph: str):
+    """The learn tables of ``test_learn_tables_record_each_tiles_form``'s
+    graph ``graph``."""
+    import chip_smoke
+    if graph == "spouse":
+        return _spouse_tables("port")
+    if graph == "ehr":
+        return _ehr_tiny()
+    if graph == "hub":
+        cg = _star(1100, 2)
+    elif graph == "kept_mixed":
+        cg = port_compile_graph(*chip_smoke._kept_mixed(8, 8))
+    else:    # phase 13's EQUAL graph at card 32, with its wide row
+        cg = port_compile_graph(*chip_smoke.factor_fixtures_of(
+            "EQUAL", ("cat32",))[0][2])
+    return pig.ItemGridEngine(cg, device="cpu").learn_tables()
+
+
+# per step, the form of each tile, as the rules give them: at kmax 2 every
+# tile `item` unless the step's longest piece passes ITEM_TILE (the hub
+# row of 1,100 items, `row`); above it `kept` where every row of a
+# one-piece tile fits a quarter of a warp's terms, else `cat`
+RECORDED_FORMS = {
+    "spouse": [["item"] * 6, ["item"] * 6],
+    "hub": [["row"], ["item"] * 9],
+    "ehr": [["kept"] * 19, ["kept"] * 4, ["kept"] * 2],
+    "kept_mixed": [["kept", "cat", "kept", "kept"], ["kept"] * 4],
+    "cat32 wide": [["kept"], ["kept"], ["kept"], ["cat"], ["kept"],
+                   ["cat"]],
+}
+
+
+@pytest.mark.parametrize("graph", sorted(RECORDED_FORMS))
+def test_learn_tables_record_each_tiles_form(graph):
+    """build_learn_tables gives every tile its form (host ``tl_form`` ==
+    device ``tl_form``), as written out in RECORDED_FORMS, and records a
+    step's launches, one per form its tiles take in LEARN_FORMS order,
+    each with its tiles and their items; at kmax 2 a step's tiles take
+    one form. On phase 13's card-32 graph the wide row (variable 0, the
+    last argument of WIDE_FACTORS factors) is in a `cat` tile."""
+    import chip_smoke
+    lt = _forms_graph(graph)
+    t = lt.sweep
+    row_item = t.row_item.numpy()
+    got = []
+    for ci in range(t.n_steps):
+        o = lt.host[ci]
+        form = o["tl_form"]
+        assert form.tolist() == lt.tl_form[
+            lt.tile0[ci]:lt.tile0[ci] + lt.n_tiles[ci]].tolist()
+        got.append([pig.LEARN_FORMS[f] for f in form])
+        rows = t.row0[ci] + np.append(o["tl_r0"], t.n_rows[ci])
+        items = row_item[rows[1:]] - row_item[rows[:-1]]
+        assert lt.launches[ci] == [
+            (f, int((form == f).sum()), int(items[form == f].sum()))
+            for f in range(len(pig.LEARN_FORMS)) if (form == f).any()]
+        assert sum(r.items for r in lt.launches[ci]) == \
+            len(t.item_index[ci])
+        if t.kmax <= 2:
+            assert len(lt.launches[ci]) == 1
+    assert got == RECORDED_FORMS[graph]
+    if graph == "cat32 wide":
+        ci = next(c for c in range(t.n_steps) if 0 in
+                  t.row_vid[t.row0[c]:t.row0[c] + t.n_rows[c]].tolist())
+        assert got[ci] == ["cat"] and t.n_rows[ci] == 1
+        assert row_item[t.row0[ci] + 1] - row_item[t.row0[ci]] >= \
+            chip_smoke.WIDE_FACTORS

@@ -364,7 +364,7 @@ def test_partial_of_an_empty_step_is_zero():
     W = cg.n_weights
     part = torch.full((2 * W,), 7, dtype=torch.int32)
     x = torch.as_tensor(cg.var_init, dtype=torch.int32)
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
     before = pig.LEARN_LAUNCHES
     pig.learn_color_partial(lt, 0, x, x.clone(), torch.zeros(W), 1, 0, hs,
                             part)

@@ -23,12 +23,15 @@ COUNTERS = ("learn.sum_weights", "learn.sum_partials")
 
 
 class _FakeLearnLib:
-    """Counts the step and sum launches, and launches nothing."""
+    """Counts the sum launches and records each step launch's form (its
+    argument before the stream), and launches nothing."""
 
     def __init__(self):
         self.sums = 0
+        self.forms = []
 
     def nsx_learn_step(self, *args):
+        self.forms.append(args[-2])
         return 0
 
     def nsx_learn_sum(self, *args):
@@ -79,7 +82,8 @@ def test_sum_counters_match_the_learn_tables(monkeypatch, graph):
     """Over an epoch's steps each sum launch adds its step's weight
     entries and their partial slots, the sum of the entries' slot runs
     (``wt_np``), and nothing else changes in the registry but the step
-    kernel's item counters: one figure a launch."""
+    kernel's item counters: one figure a launch. Both graphs' steps are
+    one launch each in the `item` form."""
     lt = _zipf_tables() if graph == "zipf" else _ising_tables()
     t = lt.sweep
     fake = _FakeLearnLib()
@@ -91,7 +95,7 @@ def test_sum_counters_match_the_learn_tables(monkeypatch, graph):
         "it_fv", "w_fixed", "wt_wid", "wt_p0", "wt_np") + pig._ORDER_FIELDS)})
     x = torch.zeros(t.n_vars, dtype=torch.int32)
     w = torch.zeros(t.n_weights, dtype=torch.float32)
-    hs = pig.learn_step_of(LearnParams(), 0.1, 1.0, 0)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
     metrics.reset()
     total = {k: 0 for k in COUNTERS}
     for ci in range(t.n_steps):
@@ -116,6 +120,7 @@ def test_sum_counters_match_the_learn_tables(monkeypatch, graph):
         # Zipf-shared feature weights: many weights, several slots each
         assert total["learn.sum_partials"] > total["learn.sum_weights"] > 100
     assert pig.LEARN_LAUNCHES == 2 * t.n_steps
+    assert fake.forms == [pig.LEARN_FORMS.index("item")] * t.n_steps
 
 
 def test_no_sum_launch_no_count(monkeypatch):
@@ -124,11 +129,14 @@ def test_no_sum_launch_no_count(monkeypatch):
     t = lt.sweep
     monkeypatch.setattr(t, "n_rows", [0] * t.n_steps)
     monkeypatch.setattr(t, "ptrs", (None,) * len(pig._TABLE_FIELDS))
-    monkeypatch.setattr(pig, "_kernel_lib", lambda name="": _FakeLearnLib())
     monkeypatch.setattr(pig, "_stream", lambda device: None)
     metrics.reset()
+    fake = _FakeLearnLib()
+    monkeypatch.setattr(pig, "_kernel_lib", lambda name="": fake)
     x = torch.zeros(t.n_vars, dtype=torch.int32)
+    hs = pig.learn_steps(LearnParams(), 0.1, 1.0, 1)[0]
     pig._launch_learn(lt, 0, x, x.clone(),
                       torch.zeros(t.n_weights, dtype=torch.float32), 1,
-                      1 << 16, pig.learn_step_of(LearnParams(), 0.1, 1.0, 0))
+                      1 << 16, hs)
     assert not set(metrics.snapshot()["counters"]) & set(COUNTERS)
+    assert fake.forms == [] and fake.sums == 0
