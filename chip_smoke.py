@@ -25,8 +25,11 @@ full run takes phase 13 right after phase 2):
    its color is a one-row step) and an Ising 3x5 with two variables of
    cardinality 1 (steps of fewer rows than one tile). Dyadic weights
    make potential sums exact in any order, so values and counts must be
-   bit-equal. Then the coin model's marginals on the card against the
-   exact joint.
+   bit-equal. Then the EHR-shape DP graph (20,000 candidates x 24 LFs)
+   with sample_evidence off: its LF colours have no row to update, so
+   ``ItemGridEngine.run`` launches one step an epoch and skips the
+   others, bit-equal to the plain version, which runs every step. Then
+   the coin model's marginals on the card against the exact joint.
    Learn: for coin, Ising 64x64 with 30 % evidence, LF card 3 (L1,
    learn_non_evidence, one fixed weight), Potts 32x32 card 64 and 128
    with evidence, voting degree 50 with 30 % evidence, 4096 ISTRUE
@@ -732,6 +735,7 @@ def phase_compare(torch):
                         int(t.row_item.diff().max()),
                         sorted(set(t.item_shape))))
             worst = max(worst, check_equal(torch, name, label, eng, **kw))
+    worst = max(worst, check_dead_steps(torch))
 
     from numbskull_tpu_torch.compile import compile_graph
     from numbskull_tpu_torch.models import coin_exact_marginal, coin_model
@@ -751,6 +755,50 @@ def phase_compare(torch):
     if max(abs(got[0] - want_m[0]), abs(got[1] - want_m[1])) > 0.02:
         fail("coin marginals off the exact joint by more than 0.02")
     return worst
+
+
+def check_dead_steps(torch):
+    """Phase 2, dead steps: the EHR-shape DP graph (KEPT_DP) with
+    sample_evidence off, whose LF colours have no row to update. The
+    kernel route launches its one live step an epoch and skips the
+    others (``sweep.skipped_steps``); the plain version runs every step;
+    values and tallies equal bit for bit. Returns the max abs difference
+    (0)."""
+    from numbskull_tpu_torch.compile import compile_graph
+    from numbskull_tpu_torch.observability import metrics
+    from numbskull_tpu_torch.ops import itemgrid as pig
+    cand, lfs = KEPT_DP
+    eng = pig.ItemGridEngine(compile_graph(*dp_graph(cand, lfs, 3)),
+                             sample_evidence=False, device=DEVICE)
+    t = eng.tables
+    seed, burn, epochs = 5, 2, 10
+    live = live_steps(t)
+
+    def skipped():
+        return metrics.snapshot()["counters"].get("sweep.skipped_steps", 0)
+
+    pig.KERNEL_LAUNCHES = 0
+    s0 = skipped()
+    xk, ck = eng.run(seed, burn, epochs)
+    torch.cuda.synchronize()
+    launches, skips = pig.KERNEL_LAUNCHES, skipped() - s0
+    xp, cp = eng.run(seed, burn, epochs, plain=True)
+    torch.cuda.synchronize()
+    same = torch.equal(xk, xp) and torch.equal(ck, cp)
+    err = max(int((xk - xp).abs().max()), int((ck - cp).abs().max()))
+    log("  dp %dx%d sample_evidence off: steps %d, rows %s, to update %s; "
+        "%d + %d epochs: %d launches, %d steps skipped; kernel route == "
+        "plain (values, tallies) %s, max |diff| %d"
+        % (cand, lfs, t.n_steps, t.n_rows, t.n_update, burn, epochs,
+           launches, skips, same, err))
+    if live != 1 or launches != burn + epochs or \
+            skips != (t.n_steps - live) * (burn + epochs):
+        fail("dead steps: %d live steps, %d launches, %d skipped; "
+             "expected 1 live step launched once an epoch"
+             % (live, launches, skips))
+    if not same:
+        fail("dead steps: the kernel route differs from the plain version")
+    return err
 
 
 CAT_STARS = (127, 128, 129, 300)   # leaves of the categorical edge stars
@@ -1127,6 +1175,13 @@ def _kept_items(lt) -> list:
             for rs in lt.launches]
 
 
+def live_steps(t) -> int:
+    """Sweep launches of one epoch on tables ``t`` without a pack buffer:
+    one per step with a row to update (``ops/itemgrid.sweep_color``
+    skips the others)."""
+    return sum(1 for n in t.n_update if n > 0)
+
+
 def learn_launches_per_epoch(lt) -> int:
     """Learn kernel launches of one epoch on these tables: per color with
     rows, the step kernel once per form its tiles take (the recorded
@@ -1275,7 +1330,7 @@ def phase_main_path(torch, workdir):
         fail("--engine hbm was not recorded as the engine asked for")
     fg = ns.factorGraphs[0]
     eng = fg.engine(ns.sample_evidence)
-    n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
+    n_colors = live_steps(eng.tables)
     log("  main() took %.2f s (load + compile + %d epochs + dump); "
         "inference %.3f s; %d launches, %d colors"
         % (wall, burn + epochs, fg.inference_total_time, launches,
@@ -1346,7 +1401,7 @@ def phase_learn_main_path(torch, workdir):
     fg = ns.factorGraphs[0]
     eng = fg.engine(True)
     lt = eng.learn_tables()
-    n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
+    n_colors = live_steps(eng.tables)
     per_epoch = learn_launches_per_epoch(lt)
     log("  main() took %.2f s; learning %.3f s, inference %.3f s; %d learn "
         "launches (%d per epoch), %d sweep launches, %d colors"
@@ -1843,7 +1898,7 @@ def phase_hbm(torch, card):
            out["learn_launches"]))
     eng = fg.engine(True)
     lt = eng.learn_tables()
-    n_colors = sum(1 for r in eng.tables.n_rows if r > 0)
+    n_colors = live_steps(eng.tables)
     per_epoch = learn_launches_per_epoch(lt)
     if out["launches"] != (burn + epochs) * n_colors or \
             out["learn_launches"] != lrn * per_epoch or \
@@ -2010,12 +2065,13 @@ def phase_mc(torch, card):
                                                r.offs_host[d]) > 0)
                      for r in eng.rows)
     sweeps = (burn + epochs) * busy_steps
+    emu = (burn + epochs) * sum(live_steps(t) for t in eng.tables)
     log("  run: %d sweep and %d unpack launches (expected %d, %d); "
         "run_emulated: %d sweep, %d unpack (expected %d, 0)"
         % (n_run[0], n_run[2], sweeps, (burn + epochs) * recv_steps,
-           n_emu[0], n_emu[2], sweeps))
+           n_emu[0], n_emu[2], emu))
     if n_run != (sweeps, 0, (burn + epochs) * recv_steps) or \
-            n_emu != (sweeps, 0, 0):
+            n_emu != (emu, 0, 0):
         fail("sharded engine launches not as counted")
     out["launches_run"], out["launches_exchange"] = n_run[0], n_run[2]
     out["launches_emu"] = n_emu[0]
@@ -2334,7 +2390,7 @@ def _bsp_infer_case(torch, model, part, mode, out):
     eng.inference(seed, epochs, burn=burn, plain=True)
     torch.cuda.synchronize()
     same, err = _bsp_diff(torch, kern, eng.state, ("values", "counts"))
-    steps = sum(1 for e in eng.engines for n in e.tables.n_rows if n > 0)
+    steps = sum(live_steps(e.tables) for e in eng.engines)
     want = ((burn + epochs) * steps,
             (burn + epochs) * steps if mode == "messages" else 0)
     mean = float(kern.counts[:, 1].double().mean()) / epochs
@@ -2432,6 +2488,7 @@ def _bsp_learn_case(torch, name, model, part, args, out, rates=False):
     fields = ("weights", "values", "values_evid")
     same, err = _bsp_diff(torch, kern, eng.state, fields)
     steps = sum(1 for e in eng.engines for r in e.tables.n_rows if r > 0)
+    live = sum(live_steps(e.tables) for e in eng.engines)
     moved = not torch.equal(kern.weights, start.weights)
     log("  %s: %d burn-in syncs + %d epochs in %.3f s; launches sweep %d "
         "(ext %d), learn %d (ext step %d); weights %s (from %s); kernels "
@@ -2442,11 +2499,11 @@ def _bsp_learn_case(torch, name, model, part, args, out, rates=False):
     if not same:
         fail("BSP learning on %s: kernels and plain versions disagree"
              % name)
-    if n[0] != burn * steps or n[1] != n[0] or n[3] != epochs * steps or \
+    if n[0] != burn * live or n[1] != n[0] or n[3] != epochs * steps or \
             not moved:
         fail("BSP learning on %s: launches %s (expected sweep %d, learn "
              "steps %d, all with ext) or the weights did not move"
-             % (name, n, burn * steps, epochs * steps))
+             % (name, n, burn * live, epochs * steps))
     out["err_learn"] = max(out.get("err_learn", 0.0), err)
     out["ext_learn_launches"] = out.get("ext_learn_launches", 0) + n[3]
     out["ext_launches"] = out.get("ext_launches", 0) + n[1]
@@ -2996,7 +3053,7 @@ def _ckpt_inference(torch, work, gdir, out):
             "main() %.2f s, launches %s, %s, resumes %s" % (
                 n, burn, ck, chunk, wall, launches, _ckpt_timing(snap),
                 snap["counters"].get("inference.resumes", 0)))
-        colors = sum(1 for r in fg.engine(True).tables.n_rows if r > 0)
+        colors = live_steps(fg.engine(True).tables)
         want = (n - (cut if name == "resumed" else 0) +
                 (burn if name != "resumed" else 0)) * colors
         if launches != (want, 0, 0):
@@ -3083,7 +3140,7 @@ def _ckpt_learning(torch, work, cdir, out):
     cnt = fg.state.count.clone()
     _zero_counts(pig)
     fg.burnIn(3, True)
-    colors = sum(1 for r in fg.engine(True).tables.n_rows if r > 0)
+    colors = live_steps(fg.engine(True).tables)
     log("  (g) burnIn(3, True): %d sweep launches, tallies unchanged %s"
         % (pig.KERNEL_LAUNCHES, torch.equal(cnt, fg.state.count)))
     if pig.KERNEL_LAUNCHES != 3 * colors or \
@@ -4166,7 +4223,7 @@ def _phase13_dp(torch, work, card):
             k["snap"]["counters"].get("engine.fallbacks"):
         fail("DP graph: --engine itemgrid did not run on the kernels")
     lt = eng.learn_tables()
-    n_colors = sum(1 for n in eng.tables.n_rows if n > 0)
+    n_colors = live_steps(eng.tables)
     lrn, inf, burn = (int(DP_ARGV[i]) for i in (1, 3, 5))
     sweeps, learns, _ = k["counts"]
     log("  itemgrid: main() %.2f s (%s); %d sweep and %d learn launches, "
@@ -4233,7 +4290,7 @@ def _phase13_potts(torch, card):
         w, v, f, fm, domain_mask=dm, color_hint=ising_color_hint(side, side)),
         device=DEVICE)
     lp = LearnParams(regularization=2, reg_param=1e-4)
-    steps = sum(1 for n in eng.tables.n_rows if n > 0)
+    steps = live_steps(eng.tables)
     pig.KERNEL_LAUNCHES = pig.LEARN_LAUNCHES = 0
     _, counts = eng.run(3, 2, 10)
     torch.cuda.synchronize()

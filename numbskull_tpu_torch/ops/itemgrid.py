@@ -64,7 +64,8 @@ chains taken just before the launch.
 :func:`sweep_color` and :func:`learn_color` are the wrappers: CPU
 tensors take the plain versions (:func:`color_step_reference`,
 :func:`learn_color_step_reference`), CUDA tensors launch the kernels or
-raise.
+raise. A sweep step with no row to update runs neither
+(``SweepTables.n_update``).
 """
 
 from __future__ import annotations
@@ -381,6 +382,8 @@ class SweepTables:
     arg_ec: torch.Tensor       # (E,) int32 eq and card (pack_args)
     row0: list                 # per step: first row
     n_rows: list               # per step: row count
+    n_update: list             # per step: rows with ROW_UPDATE; a step
+    #                            with none launches nothing (sweep_color)
     map_codes: list            # per step: index into MAPS
     draw_codes: list           # per step: index into DRAWS
     plans: list                # per step: the ColorPlan of its color
@@ -611,7 +614,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         np.asarray(schedule.arg_rank, np.int64)
     upos_all = np.asarray(schedule.upos, np.int64)
     rows, items, args = [], [], []
-    row0, n_rows, n_row_total, n_arg_total = [], [], 0, 0
+    row0, n_rows, n_update, n_row_total, n_arg_total = [], [], [], 0, 0
     item_index, item0, conflict, n_item_total = [], [], [], 0
     item_shape = []
     row_index = [] if shard is not None else None
@@ -644,9 +647,9 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
             raise ValueError("plan of color %d has items on pad rows" % c)
         arity = p.it_arity[iv].astype(np.int64)
         amask = np.arange(p.it_args_vid.shape[1])[None, :] < arity[:, None]
+        flags = row_bits[vids]
         rows.append(dict(vid=vids, card=var_card[vids],
-                         upos=upos_all[vids] - lo,
-                         flags=row_bits[vids],
+                         upos=upos_all[vids] - lo, flags=flags,
                          count=np.bincount(it_row, minlength=n)))
         items.append(dict(wid=p.it_wid[iv], arity=arity,
                           meta=pack_items(p.it_ftype[iv], p.it_dense[iv],
@@ -661,6 +664,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         args.append(dict(vid=ref, ec=ec))
         row0.append(n_row_total)
         n_rows.append(n)
+        n_update.append(int(np.count_nonzero(flags & ROW_UPDATE)))
         item_index.append(iv)
         item0.append(n_item_total)
         item_shape.append(sweep_shape(n, p.it_ftype[iv], arity,
@@ -702,7 +706,7 @@ def build_tables(cg: CompiledGraph, schedule: Schedule,
         it_meta=cat(items, "meta", np.int32),
         arg_vid=cat(args, "vid", np.int32),
         arg_ec=cat(args, "ec", np.int32),
-        row0=row0, n_rows=n_rows,
+        row0=row0, n_rows=n_rows, n_update=n_update,
         map_codes=[MAPS.index(m) for m in schedule.maps],
         draw_codes=[DRAWS.index(d) for d in schedule.draws],
         plans=[cg.plans[c] for c in schedule.colors],
@@ -917,18 +921,29 @@ def sweep_color(t: SweepTables, ci: int, x: torch.Tensor,
     salt alone, where it commutes with adding the block index.
     ``salt16`` replaces ``salt16_of(epoch, ci)``, ``send`` receives
     the rows' values after the step and ``ext`` (V, K') adds external
-    potentials before the draw (see :func:`color_step_reference`)."""
+    potentials before the draw (see :func:`color_step_reference`).
+
+    A step with no row to update (``t.n_update[ci]`` 0, as the evidence
+    colours under ``sample_evidence`` off) does nothing on either
+    device unless ``send`` asks for its values: it writes no value and
+    tallies none (ROW_TALLY comes only with ROW_UPDATE), and every
+    step's draws hash its own salt, so skipping it leaves the others'
+    draws as they were. The registry counter ``sweep.skipped_steps``
+    counts each such step."""
     if salt_xor & 0xFFFF:
         raise ValueError("salt_xor 0x%x touches the block bits" % salt_xor)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("sweep_color: unsupported device %s" % x.device)
+    if t.n_update[ci] == 0 and send is None:
+        metrics.add("sweep.skipped_steps")
+        return
     if x.device.type == "cpu":
         color_step_reference(t, ci, x, counts, weights, seed977, epoch,
                              tally, salt_xor, salt16, send, ext)
-    elif x.device.type == "cuda":
+    else:
         s16 = salt16_of(epoch, ci) if salt16 is None else salt16
         _launch_sweep(t, ci, x, counts, weights, seed977,
                       _i32(s16 ^ salt_xor), tally, send, ext)
-    else:
-        raise ValueError("sweep_color: unsupported device %s" % x.device)
 
 
 # ---- learning ------------------------------------------------------------
